@@ -8,11 +8,13 @@ and never jax, and nothing of the JAX package.
 Entry points run on the CUDA device unless the caller passes
 `device="cpu"`; without a CUDA device and without that argument they
 raise (`_device.resolve_device`). The proposal scoring pass, the one
-Pallas kernel of the JAX package, is a hand-written CUDA kernel
-(`kernels/scoring.py`, `csrc/score_homography.cu`) on the card and its
-plain torch version on the CPU.
+Pallas kernel of the JAX package, is a hand-written CUDA kernel per family
+(`kernels/scoring.py`, `csrc/score_homography.cu`,
+`csrc/score_fundamental.cu`) on the card and its plain torch version on
+the CPU.
 
-This slice ports the multi-homography path: `findHomographies`.
+Ported so far: the multi-homography path (`findHomographies`) and the
+two-view-motion path (`findTwoViewMotions`).
 """
 
 import torch as _torch
@@ -28,5 +30,9 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
-from progressivex_tpu_torch.api import Statistics, findHomographies  # noqa: E402,F401
+from progressivex_tpu_torch.api import (  # noqa: E402,F401
+    Statistics,
+    findHomographies,
+    findTwoViewMotions,
+)
 from progressivex_tpu_torch.models import get_family  # noqa: E402,F401

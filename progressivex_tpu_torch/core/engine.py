@@ -13,11 +13,16 @@ done) are read on the host.
 Samples are drawn for all rounds before the loop, on a CPU generator, so
 that the card and the CPU see the same samples for the same seed; the
 `presampled` argument of `fit` replaces the draws (a test replays the JAX
-package's exact samples through it).
+package's exact samples through it). With `n_restarts > 1` the restarts
+run one after another on the shared neighborhood tensors, each drawing
+all of its samples before the next starts, and `select_restart` picks the
+winner on the host; the JAX package vmaps them.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import re
 from typing import NamedTuple
 
 import numpy as np
@@ -81,6 +86,8 @@ class FitResult(NamedTuple):
     energy: torch.Tensor  # final total energy (data + Potts + label costs)
     round_log: RoundLog
     compound_pref: torch.Tensor  # [N] of the final descriptors
+    restart: int = 0  # index of the winning restart
+    restart_energies: tuple = ()  # final energy of every restart
 
 
 def _k_star(inliers, n_valid, confidence, sample_size):
@@ -242,7 +249,6 @@ def _round(family, cfg, params, data, pmask, pweights, idx, samp_ok,
 
 def _check_slice(cfg: EngineConfig):
     later = {
-        "n_restarts": cfg.n_restarts != 1,
         "final_polish": cfg.final_polish != 0,
         "polish_research": cfg.polish_research != 0,
         "polish_trim": cfg.polish_trim != 0.0,
@@ -256,31 +262,42 @@ def _check_slice(cfg: EngineConfig):
             f"EngineConfig options {unsupported} belong to later slices of the port")
 
 
+def spatial_order(data, point_mask):
+    """Principal-axis sort of a banded fit, so that kNN neighbors fall in
+    a +-potts_band index window (ops/labeling.BandedAdj); padding sorts
+    last. Returns (perm, rank): sorted position -> caller's point, and
+    caller's point -> sorted position."""
+    m = point_mask.to(data.dtype)
+    mu = (data * m[:, None]).sum(0) / torch.clamp(m.sum(), min=1.0)
+    xc = (data - mu) * m[:, None]
+    cov = xc.T @ xc
+    v = torch.ones(data.shape[1], dtype=data.dtype, device=data.device)
+    for _ in range(8):
+        v = cov @ v
+        v = v / torch.clamp(torch.linalg.vector_norm(v), min=1e-20)
+    proj = (data - mu) @ v
+    perm = torch.argsort(torch.where(point_mask, proj, float("inf")), stable=True)
+    return perm, torch.argsort(perm, stable=True)
+
+
 def fit(family: ModelFamily, cfg: EngineConfig, params: RuntimeParams, data,
         point_mask, point_weights, generator: torch.Generator | None = None,
         presampled=None) -> FitResult:
     """The full multi-model fit of one padded scene, on the device of
-    `data`. Samples come from `generator` (a CPU torch.Generator) unless
-    `presampled = (idx_all [R, B, m], ok_all [R, B], idx_ext [S-1, B, m],
-    ok_ext [S-1, B])` is given, in the sorted point order of the fit."""
+    `data`. Samples come from `generator` (a CPU torch.Generator): restart
+    0 draws all of its rounds first, then restart 1, and so on, so that a
+    fit on the card and one on the CPU with the same seed see the same
+    samples. `presampled = (idx_all [R, B, m], ok_all [R, B],
+    idx_ext [S-1, B, m], ok_ext [S-1, B])` replaces the draws of one run
+    (a sequence of `n_restarts` such tuples when `n_restarts > 1`), as the
+    sampler returns them: PROSAC's in the caller's point order, every other
+    sampler's in the sorted order of the fit."""
     _check_slice(cfg)
     n = data.shape[0]
     use_band = cfg.potts_band > 0 and n > 128 + 2 * cfg.potts_band
     rank = None
     if use_band:
-        # Principal-axis sort so that kNN neighbors fall in a +-potts_band
-        # index window (ops/labeling.BandedAdj); padding sorts last.
-        m = point_mask.to(data.dtype)
-        mu = (data * m[:, None]).sum(0) / torch.clamp(m.sum(), min=1.0)
-        xc = (data - mu) * m[:, None]
-        cov = xc.T @ xc
-        v = torch.ones(data.shape[1], dtype=data.dtype, device=data.device)
-        for _ in range(8):
-            v = cov @ v
-            v = v / torch.clamp(torch.linalg.vector_norm(v), min=1e-20)
-        proj = (data - mu) @ v
-        perm = torch.argsort(torch.where(point_mask, proj, float("inf")), stable=True)
-        rank = torch.argsort(perm, stable=True)
+        perm, rank = spatial_order(data, point_mask)
         data, point_mask, point_weights = data[perm], point_mask[perm], point_weights[perm]
 
     samp_idx, samp_mask = knn_graph(data, point_mask, params.neighborhood_radius,
@@ -291,11 +308,48 @@ def fit(family: ModelFamily, cfg: EngineConfig, params: RuntimeParams, data,
     else:
         adj = adjacency_from_knn(knn_idx, knn_mask)
 
-    result = _fit_prepared(family, cfg, params, data, point_mask, point_weights,
-                           generator, samp_idx, samp_mask, adj, presampled)
+    args = (family, dataclasses.replace(cfg, n_restarts=1), params, data,
+            point_mask, point_weights, generator, samp_idx, samp_mask, adj, rank)
+    if cfg.n_restarts == 1:
+        pre = [presampled]
+    else:
+        pre = [None] * cfg.n_restarts if presampled is None else list(presampled)
+    if len(pre) != cfg.n_restarts:
+        raise ValueError(f"presampled holds {len(pre)} runs for "
+                         f"{cfg.n_restarts} restarts")
+    results = [_fit_prepared(*args, p) for p in pre]
+    energies = [float(r.energy) for r in results]  # one read per restart
+    best = select_restart(energies, cfg.restart_rule, [r.n_models for r in results])
+    result = results[best]._replace(restart=best, restart_energies=tuple(energies))
     if rank is not None:
         result = result._replace(labels=result.labels[rank])
     return result
+
+
+# restart_rule "energy+<L>k": a selection-time label cost L per instance on
+# top of the final energy (see select_restart).
+_ENERGY_K_RULE = re.compile(r"energy\+([0-9.]+)k")
+
+
+def select_restart(energy, rule: str, n_models=None) -> int:
+    """The winning restart's index, from the final energies [R] and, for
+    "energy+<L>k", the model counts [R] (counterpart of the JAX package's
+    engine.select_restart, which also documents why the label cost).
+
+    "energy": argmin of the energy. "energy+<L>k": argmin of
+    energy + L * n_models. Runs in numpy on the host."""
+    energy = np.asarray(energy, np.float32)
+    if rule == "energy" or energy.shape[0] == 1:
+        return int(np.argmin(energy))
+    m = _ENERGY_K_RULE.fullmatch(rule)
+    if m:
+        if n_models is None:
+            raise ValueError(f"rule {rule!r} needs n_models")
+        lam = float(m.group(1))
+        return int(np.argmin(energy + lam * np.asarray(n_models).astype(np.float32)))
+    raise ValueError(f"unknown restart_rule {rule!r} "
+                     "(expected 'energy' or 'energy+<L>k'; 'agreement' "
+                     "was retired — see docs/DESIGN_NOTES.md)")
 
 
 def _draw(gen, cfg, family, params, samp_idx, samp_mask, count):
@@ -319,8 +373,9 @@ def _total_energy(family, params, data, pmask, adj, descs, active, labels):
 
 
 def _fit_prepared(family, cfg, params, data, point_mask, point_weights,
-                  generator, samp_idx, samp_mask, adj, presampled=None):
-    """One engine run with the neighborhood tensors built."""
+                  generator, samp_idx, samp_mask, adj, rank=None, presampled=None):
+    """One engine run with the neighborhood tensors built. `rank` maps the
+    caller's point order to the sorted order of a banded fit."""
     dev = data.device
     n = data.shape[0]
     k_slots = cfg.max_models
@@ -337,6 +392,11 @@ def _fit_prepared(family, cfg, params, data, point_mask, point_weights,
     idx_all, ok_all, idx_ext, ok_ext = (
         t.to(dev) for t in (idx_all, ok_all, idx_ext, ok_ext))
     idx_all, idx_ext = idx_all.long(), idx_ext.long()
+    if cfg.sampler_id == 1 and rank is not None:
+        # PROSAC draws in quality order, the caller's row order: map its
+        # indices through the spatial sort (every other sampler draws in
+        # sorted order already).
+        idx_all, idx_ext = rank[idx_all], rank[idx_ext]
 
     state = FitState(
         descs=torch.zeros(k_slots, family.desc_dim, dtype=data.dtype, device=dev),

@@ -1,72 +1,31 @@
 // Fused compound-penalized scoring of homography hypotheses (sm_90a).
 //
 // Replaces the Pallas TPU kernel progressivex_tpu/ops/pallas_scoring.py:91-126
-// (`_score_kernel` with `_homography_r2`, launched by `fused_scores` at :155).
-// For every (hypothesis b, point n) it forms the squared transfer error r2
-// under H_b (1e18 where |pz| <= 1e-9), x = r2 / tau_t^2, the hard-tau
-// preference pref = max(0, 1 - x) and the ranking preference (pref, or the
-// MAGSAC ladder (1/m) sum_j max(0, 1 - x / (j/m)^2)), and reduces five sums
-// over the points:
-//   raw = sum rank_pref, shared = sum min(pref, compound),
-//   inliers = #{r2 < tau_t^2 / 2.25}, dot = sum pref * compound,
-//   norm = sum pref^2,
-// all over unmasked points only. The epilogue writes
-//   score = has_compound ? raw - max(shared, 0)^exponent : raw.
-//
-// Design: one warp per hypothesis, the 9 entries of H in registers; the warp
-// strides over the N points reading one float4 (x1, y1, x2, y2), the compound
-// value and the mask per point, keeps five running sums per lane and reduces
-// them with shuffles. No atomics and a fixed reduction tree, so the sums are
-// the same from run to run. The arithmetic is written in the order of the
-// plain torch version (models/homography._squared_residual) and built with
-// -fmad=false, so r2, and with it the inlier count, matches it bit for bit.
+// (`_score_kernel` with `_homography_r2` at :70-85, launched by
+// `fused_scores` at :155). The kernel body is score_common.cuh's; the
+// residual here is the squared transfer error under H (1e18 where
+// |pz| <= 1e-9), in the operation order of the plain torch version
+// (models/homography._squared_residual).
 //
 // Bound on an H100: at B = 256 and N = 2304 (2084 valid points, unihouse)
-// the pass does 32 float32 operations per (hypothesis, valid point) pair, 49
-// with four MAGSAC levels (26 MFLOP, 0.39 us at 67 TFLOP/s), and moves 69 KB
-// (0.02 us at 3.35 TB/s): it is bound by arithmetic, not by memory. This
-// first version keeps no points in shared memory and scores one hypothesis
-// per warp; staging point tiles and scoring several hypotheses per warp is
-// the next step.
+// the pass does 32 float32 operations per (hypothesis, valid point) pair
+// (the residual 20: projection 12, |pz| test 1, transfer error 7), 49 with
+// four MAGSAC levels (26 MFLOP, 0.39 us at 67 TFLOP/s), and moves 69 KB
+// (0.02 us at 3.35 TB/s): it is bound by arithmetic, not by memory.
 
-#include <cuda_runtime.h>
+#include "score_common.cuh"
 
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__global__ void score_homography_kernel(const float4* __restrict__ pts,
-                                        const float* __restrict__ compound,
-                                        const float* __restrict__ pmask,
-                                        const float* __restrict__ descs, int n_hyp,
-                                        int n_pts, float trunc_sq, float exponent,
-                                        int has_compound, int magsac_levels,
-                                        float* __restrict__ scores,
-                                        int* __restrict__ inliers,
-                                        float* __restrict__ dots,
-                                        float* __restrict__ norms) {
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (b >= n_hyp) return;  // whole warps exit together
-
+struct HomographyR2 {
   float h[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) h[k] = descs[b * 9 + k];
-  const float inl_thr = trunc_sq / 2.25f;
-  const float inv_m = magsac_levels > 0 ? 1.0f / (float)magsac_levels : 0.0f;
 
-  float raw = 0.f, shared = 0.f, dot = 0.f, norm = 0.f;
-  int inl = 0;
-  for (int n = lane; n < n_pts; n += 32) {
-    if (pmask[n] == 0.0f) continue;
-    const float4 p = pts[n];
-    const float c = compound[n];
+  __device__ explicit HomographyR2(const float* d) {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) h[k] = d[k];
+  }
+
+  __device__ float operator()(const float4 p) const {
     const float px = h[0] * p.x + h[1] * p.y + h[2];
     const float py = h[3] * p.x + h[4] * p.y + h[5];
     const float pz = h[6] * p.x + h[7] * p.y + h[8];
@@ -74,37 +33,9 @@ __global__ void score_homography_kernel(const float4* __restrict__ pts,
     const float pz_safe = finite ? pz : 1e-9f;
     const float dx = px / pz_safe - p.z;
     const float dy = py / pz_safe - p.w;
-    const float r2 = finite ? dx * dx + dy * dy : 1e18f;
-    const float x = r2 / trunc_sq;
-    const float pref = fmaxf(1.0f - x, 0.0f);
-    float rank = pref;
-    if (magsac_levels > 0) {
-      float acc = 0.f;
-      for (int j = 1; j <= magsac_levels; ++j) {
-        const float s = (float)j * inv_m;
-        acc += fmaxf(1.0f - x / (s * s), 0.0f);
-      }
-      rank = acc * inv_m;
-    }
-    raw += rank;
-    shared += fminf(pref, c);
-    inl += r2 < inl_thr ? 1 : 0;
-    dot += pref * c;
-    norm += pref * pref;
+    return finite ? dx * dx + dy * dy : 1e18f;
   }
-  raw = warp_sum(raw);
-  shared = warp_sum(shared);
-  dot = warp_sum(dot);
-  norm = warp_sum(norm);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) inl += __shfl_xor_sync(0xffffffffu, inl, off);
-  if (lane == 0) {
-    scores[b] = has_compound ? raw - powf(fmaxf(shared, 0.0f), exponent) : raw;
-    inliers[b] = inl;
-    dots[b] = dot;
-    norms[b] = norm;
-  }
-}
+};
 
 }  // namespace
 
@@ -114,13 +45,7 @@ extern "C" int score_homography(const void* pts, const void* compound,
                                 int has_compound, int magsac_levels, void* scores,
                                 void* inliers, void* dots, void* norms,
                                 void* stream) {
-  const int threads = 32 * kWarpsPerBlock;
-  const int blocks = (n_hyp + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  score_homography_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(pts), static_cast<const float*>(compound),
-      static_cast<const float*>(pmask), static_cast<const float*>(descs), n_hyp,
-      n_pts, trunc_sq, exponent, has_compound, magsac_levels,
-      static_cast<float*>(scores), static_cast<int*>(inliers),
-      static_cast<float*>(dots), static_cast<float*>(norms));
-  return static_cast<int>(cudaGetLastError());
+  return progx::launch_scores<HomographyR2>(
+      pts, compound, pmask, descs, n_hyp, n_pts, trunc_sq, exponent, has_compound,
+      magsac_levels, scores, inliers, dots, norms, stream);
 }

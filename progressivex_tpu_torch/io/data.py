@@ -25,6 +25,7 @@ def _resolve_default_root() -> str:
 DEFAULT_ROOT = _resolve_default_root()
 
 ADELAIDE_H_SCENES = ("oldclassicswing", "unihouse", "unionhouse")
+ADELAIDE_F_SCENES = ("book", "breadcube", "cubetoy")
 
 
 def load_corr_scene(name: str, root: str = DEFAULT_ROOT):

@@ -2,14 +2,15 @@
 
 Each source is compiled by `nvcc` for sm_90a into
 `<checkout>/build/torch_kernels/<name>-<hash>.so`, where the hash covers
-the source and the flags, and loaded with ctypes. A library is built at
-its first use in a process, or by `build_all`, which starts one `nvcc`
-per source at once. Nothing here runs when the module is imported.
+the source, every shared header (csrc/*.cuh) and the flags, and loaded
+with ctypes. A library is built at its first use in a process, or by
+`build_all`, which starts one `nvcc` per source at once. Nothing here runs when the module is imported.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -19,7 +20,7 @@ import tempfile
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
-SOURCES = ("score_homography",)
+SOURCES = ("score_homography", "score_fundamental")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,9 +39,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"{name}-{digest[:16]}.so")
+    digest = hashlib.sha256(" ".join(FLAGS).encode())
+    for path in [os.path.join(CSRC, f"{name}.cu"),
+                 *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
 def _start(name: str):

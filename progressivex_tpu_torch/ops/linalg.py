@@ -1,18 +1,21 @@
-"""Closed-form linear algebra of the homography solvers — counterpart of
-the subset of progressivex_tpu/ops/linalg.py that models/homography.py
-imports.
+"""Closed-form linear algebra of the solvers — counterpart of the subset
+of progressivex_tpu/ops/linalg.py that the homography and fundamental
+families import.
 
 The algorithms are the JAX package's, step for step: unrolled
 Gauss-Jordan elimination with the same partial-pivot rule, null spaces by
-fixing the free columns, and shifted inverse iteration (6 steps) for the
-smallest eigenvector. `torch.linalg.svd`/`eigh` would return other signs
-and bases. The JAX package keeps a separate lanes-major form
+fixing the free columns, shifted inverse iteration (6 steps) for the
+smallest eigenvector, and the trigonometric/Cardano cubic with its
+quadratic and linear fallbacks. `torch.linalg.svd`/`eigh` would return
+other signs and bases. The JAX package keeps a separate lanes-major form
 (`gauss_jordan_solve_lanes`, `nullspace_exact_lanes`) with the batch axis
 last for the TPU's vector lanes; here one batch-first form serves both:
 every function takes any number of leading batch dimensions.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -21,24 +24,85 @@ _BIG = 1e18
 
 
 def hartley_normalize(pts, weights):
-    """Weighted Hartley normalization of 2D points pts [N, 2], weights [N].
+    """Weighted Hartley normalization of 2D points pts [..., N, 2] under
+    weights [..., N] (leading dimensions broadcast).
 
-    Returns (pts_norm [N, 2], T [3, 3]) with p_norm_h = T @ p_h: the
-    weighted centroid maps to the origin, the weighted mean distance to
-    sqrt(2)."""
-    wsum = torch.clamp(weights.sum(), min=_EPS)
-    mean = (weights[:, None] * pts).sum(0) / wsum
-    centered = pts - mean
+    Returns (pts_norm [..., N, 2], T [..., 3, 3]) with p_norm_h = T @ p_h:
+    the weighted centroid maps to the origin, the weighted mean distance
+    to sqrt(2)."""
+    wsum = torch.clamp(weights.sum(-1), min=_EPS)
+    mean = (weights[..., :, None] * pts).sum(-2) / wsum[..., None]
+    centered = pts - mean[..., None, :]
     dist = torch.linalg.vector_norm(centered, dim=-1)
-    mean_dist = (weights * dist).sum() / wsum
+    mean_dist = (weights * dist).sum(-1) / wsum
     sqrt2 = torch.tensor(2.0, dtype=pts.dtype, device=pts.device).sqrt()
     scale = sqrt2 / torch.clamp(mean_dist, min=_EPS)
-    T = torch.eye(3, dtype=pts.dtype, device=pts.device)
-    T[0, 0] = scale
-    T[1, 1] = scale
-    T[0, 2] = -scale * mean[0]
-    T[1, 2] = -scale * mean[1]
-    return centered * scale, T
+    one, zero = torch.ones_like(scale), torch.zeros_like(scale)
+    T = torch.stack([
+        torch.stack([scale, zero, -scale * mean[..., 0]], -1),
+        torch.stack([zero, scale, -scale * mean[..., 1]], -1),
+        torch.stack([zero, zero, one], -1),
+    ], -2)
+    return centered * scale[..., None, None], T
+
+
+def _cbrt_signed(x):
+    return torch.sign(x) * x.abs() ** (1.0 / 3.0)
+
+
+def cubic_roots_real(a, b, c, d):
+    """Real roots of a x^3 + b x^2 + c x + d = 0 for coefficient tensors
+    of one shape [...]. Returns (roots [..., 3], valid [..., 3] bool).
+
+    Three real roots (the discriminant >= 0, repeated roots included) come
+    from the trigonometric formula, one from Cardano's, with the other two
+    entries filled by it and marked invalid; a tiny `a` falls back to the
+    quadratic and a tiny `b` to the linear equation."""
+    is_cubic = a.abs() > 1e-10 * torch.maximum(
+        torch.maximum(b.abs(), c.abs()), torch.clamp(d.abs(), min=1.0))
+    a_safe = torch.where(is_cubic, a, 1.0)
+
+    # Depressed cubic t^3 + p t + q with x = t - b / (3 a).
+    shift = b / (3.0 * a_safe)
+    p = (3.0 * a_safe * c - b * b) / (3.0 * a_safe * a_safe)
+    q = (2.0 * b ** 3 - 9.0 * a_safe * b * c + 27.0 * a_safe * a_safe * d) / (
+        27.0 * a_safe ** 3)
+    disc = -4.0 * p ** 3 - 27.0 * q * q
+
+    # Three real roots: the trigonometric method.
+    p_neg = torch.clamp(p, max=-_EPS)
+    m = 2.0 * torch.sqrt(-p_neg / 3.0)
+    acos_arg = torch.clamp(3.0 * q / (p_neg * m), -1.0, 1.0)
+    theta = torch.arccos(acos_arg) / 3.0
+    k = torch.arange(3, dtype=a.dtype, device=a.device)
+    roots_tri = m[..., None] * torch.cos(theta[..., None] - 2.0 * math.pi * k / 3.0)
+
+    # One real root: Cardano.
+    half_q = 0.5 * q
+    sq = torch.sqrt(torch.clamp(half_q * half_q + p ** 3 / 27.0, min=0.0))
+    t_single = _cbrt_signed(-half_q + sq) + _cbrt_signed(-half_q - sq)
+
+    # The trigonometric formula holds on the disc == 0 boundary too.
+    three_real = disc >= 0.0
+    roots = torch.where(three_real[..., None], roots_tri, t_single[..., None]) \
+        - shift[..., None]
+    valid = torch.stack([torch.ones_like(three_real), three_real, three_real], -1)
+
+    # Quadratic fallback b x^2 + c x + d = 0, linear below it.
+    is_quad = b.abs() > 1e-12
+    b_safe = torch.where(is_quad, b, 1.0)
+    qdisc = c * c - 4.0 * b_safe * d
+    qs = torch.sqrt(torch.clamp(qdisc, min=0.0))
+    qr0 = (-c - qs) / (2.0 * b_safe)
+    qr1 = (-c + qs) / (2.0 * b_safe)
+    lin = -d / torch.where(c.abs() > _EPS, c, 1.0)
+    quad_roots = torch.stack([torch.where(is_quad, qr0, lin), qr1, qr1], -1)
+    quad_ok = is_quad & (qdisc >= 0)
+    quad_valid = torch.stack([quad_ok | ~is_quad, quad_ok, torch.zeros_like(quad_ok)], -1)
+
+    roots = torch.where(is_cubic[..., None], roots, quad_roots)
+    valid = torch.where(is_cubic[..., None], valid, quad_valid)
+    return roots, valid
 
 
 def gauss_jordan_solve(M, B):

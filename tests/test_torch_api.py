@@ -126,7 +126,8 @@ def test_port_imports_nothing_of_jax():
             for name in names:
                 assert name.split(".")[0] not in forbidden, f"{path}: imports {name}"
     code = ("import sys, progressivex_tpu_torch, progressivex_tpu_torch.eval.adelaide, "
-            "progressivex_tpu_torch.convert, progressivex_tpu_torch.kernels._build; "
+            "progressivex_tpu_torch.convert, progressivex_tpu_torch.kernels._build, "
+            "progressivex_tpu_torch.models.fundamental; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'progressivex_tpu')]; print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -2,7 +2,8 @@
 tests/test_sampling.py holds the JAX package's samplers to: index ranges,
 the suffix-padding invariant (draws come from the valid prefix), distinct
 members, NAPSAC companions drawn from the center's valid neighborhood,
-and determinism for one seed. torch.Generator and jax.random give other
+and determinism for one seed, for all four sampler ids (PROSAC's prefix
+and P-NAPSAC's window are tested in tests/test_torch_fundamental.py). torch.Generator and jax.random give other
 numbers for the same seed, so values are not compared across packages;
 the JAX samplers run on the same tables as a check of the invariants
 themselves.
@@ -34,7 +35,7 @@ def _draw(sampler_id, seed, knn_idx, knn_mask, n_valid=N_VALID):
                                    torch.from_numpy(knn_mask))
 
 
-@pytest.mark.parametrize("sampler_id", [0, 3])
+@pytest.mark.parametrize("sampler_id", [0, 1, 2, 3])
 def test_valid_indices_and_determinism(sampler_id):
     knn_idx, knn_mask = _knn_tables()
     idx, ok = _draw(sampler_id, 3, knn_idx, knn_mask)
@@ -44,7 +45,7 @@ def test_valid_indices_and_determinism(sampler_id):
     assert rows.min() >= 0 and rows.max() < N
     # centers and uniform draws come from the valid prefix
     assert rows[:, 0].max() < N_VALID
-    if sampler_id == 0:
+    if sampler_id in (0, 1):
         assert rows.max() < N_VALID
         assert all(len(set(r.tolist())) == M for r in rows)
     idx2, ok2 = _draw(sampler_id, 3, knn_idx, knn_mask)
@@ -90,5 +91,5 @@ def test_too_few_valid_points_and_unknown_sampler():
     knn_idx, knn_mask = _knn_tables()
     _, ok = _draw(0, 0, knn_idx, knn_mask, n_valid=3)
     assert not bool(ok.any())
-    with pytest.raises(NotImplementedError):
-        _draw(2, 0, knn_idx, knn_mask)
+    with pytest.raises(ValueError, match="Unknown sampler id"):
+        _draw(4, 0, knn_idx, knn_mask)
