@@ -7,7 +7,8 @@ Phases, each of which raises on failure:
   1. prints the card (nvidia-smi) and builds the CUDA kernels from csrc/,
      one nvcc per source, all at once;
   2. holds each kernel (score_homography, score_fundamental) against its
-     plain torch version on the card at its path's shapes, and times both;
+     plain torch version on the card at its path's shapes, and times both
+     beside the launch floor (one one-element kernel, timed the same way);
   3. drives the two ported paths on their bundled scenes, each with the
      launch counts set to 0 just before it and read just after:
      findHomographies under the AdelaideRMF-H protocol and
@@ -132,12 +133,12 @@ def _score_bound(b, n_valid, n_pts, magsac_levels, family):
     pref 2 (sub, max), five sums 9 (raw: add; shared: min, add; inliers:
     compare, add; dot: mul, add; norm: mul, add); with m MAGSAC levels,
     4 m + 1 more (div, sub, max, add per level, one scale by 1/m). Masked
-    points are skipped, so only valid points count. Bytes: 24 per point
-    (float4 of coordinates, compound and mask), 36 per descriptor and 16
-    of outputs per hypothesis."""
+    points are skipped, so only valid points count. Bytes: 21 per point
+    (float4 of coordinates, f32 compound, the bool mask as one byte), 36
+    per descriptor and 16 of outputs per hypothesis."""
     flops_pair = RESIDUAL_OPS[family] + 12 + (4 * magsac_levels + 1 if magsac_levels else 0)
     flops = b * n_valid * flops_pair
-    nbytes = n_pts * 24 + b * (36 + 16)
+    nbytes = n_pts * 21 + b * (36 + 16)
     t_ops = flops / PEAK_F32_FLOP_S * 1e3
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -145,11 +146,17 @@ def _score_bound(b, n_valid, n_pts, magsac_levels, family):
 
 def _scene_tensors(torch, dev, scene, rng):
     """A bundled scene padded as the API pads it: (data [N, 4], point
-    mask [N], a random compound preference [N], valid count)."""
+    mask [N], a random compound preference [N], valid count). The scene
+    SYNTHETIC is made here instead: 7000 correspondences of three
+    homographies near the identity (0.5 px noise) and 30% outliers in a
+    1000 px square, padded to the largest pad level, 7680."""
     from progressivex_tpu_torch.api import _pad_to
     from progressivex_tpu_torch.io.data import load_corr_scene
 
-    corrs, _ = load_corr_scene(scene)
+    if scene == SYNTHETIC:
+        corrs = _synthetic_corrs(rng, 7000)
+    else:
+        corrs, _ = load_corr_scene(scene)
     n, n_pad = len(corrs), _pad_to(len(corrs))
     data = torch.zeros(n_pad, 4, dtype=torch.float32, device=dev)
     data[:n] = torch.as_tensor(corrs, dtype=torch.float32, device=dev)
@@ -157,6 +164,24 @@ def _scene_tensors(torch, dev, scene, rng):
     compound = torch.as_tensor(rng.uniform(0, 1, n_pad), dtype=torch.float32,
                                device=dev) * pmask
     return data, pmask, compound, n
+
+
+SYNTHETIC = "synthetic-7680"
+
+
+def _synthetic_corrs(rng, n):
+    """n correspondences (x1, y1, x2, y2): 30% outliers, the rest split
+    over three homographies near the identity, with 0.5 px noise."""
+    x1 = rng.uniform(0, 1000, (n, 2))
+    x2 = rng.uniform(0, 1000, (n, 2))
+    n_in = int(0.7 * n)
+    for i, part in enumerate(np.array_split(np.arange(n_in), 3)):
+        h = np.eye(3) + rng.normal(0, [[1e-2, 1e-2, 5.0], [1e-2, 1e-2, 5.0],
+                                       [1e-5, 1e-5, 0.0]])
+        h[:2, 2] += 40.0 * i
+        p = np.c_[x1[part], np.ones(len(part))] @ h.T
+        x2[part] = p[:, :2] / p[:, 2:] + rng.normal(0, 0.5, (len(part), 2))
+    return np.c_[x1, x2]
 
 
 def _minimal_descs(torch, family, data, n, count, rng):
@@ -186,6 +211,7 @@ def _kernel_cases(torch, dev, name, scenes, sizes, trunc_sq, exponent, rng):
     cuda_fn = getattr(ks, f"{name}_cuda")
     plain_fn = getattr(ks, f"{name}_plain")
     kernel = ks._kernel(name)
+    floor = torch.zeros(1, device=dev)  # the launch floor: one tiny kernel
     cases, worst_abs = [], 0.0
     for scene in scenes:
         data, pmask, compound, n = _scene_tensors(torch, dev, scene, rng)
@@ -212,21 +238,26 @@ def _kernel_cases(torch, dev, name, scenes, sizes, trunc_sq, exponent, rng):
                                 f"has={has}: max abs {float((g - w_).abs().max())}")
                         err = max(err, float((g - w_).abs().max()))
                     worst_abs = max(worst_abs, err)
-                    pts, pm = data.contiguous(), pmask.to(torch.float32)
                     outs = [torch.empty(b, device=dev) for _ in range(3)]
                     inl = torch.empty(b, dtype=torch.int32, device=dev)
+                    tiling = ks._tiling(b, n_pad, ks._sm_count(dev))
 
                     def launch():
-                        kernel(pts.data_ptr(), compound.data_ptr(), pm.data_ptr(),
-                           d.data_ptr(), b, n_pad, trunc_sq, exponent, int(has), m,
-                           outs[0].data_ptr(), inl.data_ptr(), outs[1].data_ptr(),
-                           outs[2].data_ptr(), torch.cuda.current_stream().cuda_stream)
+                        err = kernel(data.data_ptr(), compound.data_ptr(),
+                                     pmask.data_ptr(), d.data_ptr(), b, n_pad,
+                                     trunc_sq, exponent, int(has), m, *tiling,
+                                     outs[0].data_ptr(), inl.data_ptr(),
+                                     outs[1].data_ptr(), outs[2].data_ptr(),
+                                     torch.cuda.current_stream().cuda_stream)
+                        if err:
+                            raise RuntimeError(f"{name} {tiling}: CUDA error {err}")
 
                     bound, bound_by = _score_bound(b, n, n_pad, m, family.name)
                     case = {
                         "kernel": name, "scene": scene, "shape": [b, n_pad],
                         "n_valid": n, "magsac_levels": m, "has_compound": has,
-                        "ms": _device_ms(launch),
+                        "tiling": tiling, "ms": _device_ms(launch),
+                        "launch_floor_ms": _device_ms(floor.zero_),
                         "plain_ms": _device_ms(lambda: plain_fn(*args)),
                         "wrapper_ms": _host_ms(lambda: cuda_fn(*args)),
                         "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err,
@@ -253,14 +284,15 @@ def _kernel_cases(torch, dev, name, scenes, sizes, trunc_sq, exponent, rng):
 
 def phase_kernel(torch, dev):
     """Each kernel against its plain version at its path's shapes: H at
-    [256 | 4, 384 | 2304] (proposal sub-batch | LO candidates), F at
-    [1536 | 4, 256] (512 seven-point samples x 3 roots | LO candidates)."""
+    [256 | 4, 384 | 2304 | 7680] (proposal sub-batch | LO candidates; 7680
+    is the largest pad level, on a synthetic scene), F at [1536 | 4, 256]
+    (512 seven-point samples x 3 roots | LO candidates)."""
     from progressivex_tpu_torch.core.config import truncated_sq_threshold
 
     rng = np.random.default_rng(0)
     out = {"score_homography": _kernel_cases(
-        torch, dev, "score_homography", ("oldclassicswing", "unihouse"), (256, 4),
-        36.0, 2.0, rng)}
+        torch, dev, "score_homography", ("oldclassicswing", "unihouse", SYNTHETIC),
+        (256, 4), 36.0, 2.0, rng)}
     out["score_fundamental"] = _kernel_cases(
         torch, dev, "score_fundamental", ("cubetoy",), (1536, 4),
         float(truncated_sq_threshold(0.75)), 1.0, rng)
@@ -365,6 +397,7 @@ def _kernel_line(name, cases, worst_abs, results, main_shape, pallas_lines):
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": None,
         "shape": main_case["shape"], "wrapper_ms": main_case["wrapper_ms"],
+        "launch_floor_ms": main_case["launch_floor_ms"],
     }
 
 

@@ -14,8 +14,11 @@
 // divide 3), 46 with the preference and the five sums, 63 with four MAGSAC
 // levels. At the F proposal shape, B = 1536 (512 seven-point samples x 3
 // roots) and N = 256 (249 valid points, cubetoy), that is 24.1 MFLOP, 0.36 us
-// at 67 TFLOP/s, against 86 KB moved (0.026 us at 3.35 TB/s): bound by
-// arithmetic. The LO rescoring shape, B = 4, is bound by bytes.
+// at 67 TFLOP/s, against 85 KB moved (0.025 us at 3.35 TB/s): bound by
+// arithmetic by that count. The LO rescoring shape, B = 4, is bound by
+// bytes, and in practice by the launch. Three IEEE divisions a pair (the
+// Sampson quotient, x = r2 / tau_t^2, one ladder level) cost about ten
+// instructions each; the body's answer to latency is in score_common.cuh.
 
 #include "score_common.cuh"
 
@@ -24,9 +27,9 @@ namespace {
 struct SampsonR2 {
   float f[9];
 
-  __device__ explicit SampsonR2(const float* d) {
+  __device__ void load(const float* d) {
 #pragma unroll
-    for (int k = 0; k < 9; ++k) f[k] = d[k];
+    for (int k = 0; k < 9; ++k) f[k] = __ldg(d + k);
   }
 
   __device__ float operator()(const float4 p) const {
@@ -46,10 +49,11 @@ struct SampsonR2 {
 extern "C" int score_fundamental(const void* pts, const void* compound,
                                  const void* pmask, const void* descs, int n_hyp,
                                  int n_pts, float trunc_sq, float exponent,
-                                 int has_compound, int magsac_levels, void* scores,
+                                 int has_compound, int magsac_levels, int k_tile,
+                                 int cluster, int threads, void* scores,
                                  void* inliers, void* dots, void* norms,
                                  void* stream) {
   return progx::launch_scores<SampsonR2>(
       pts, compound, pmask, descs, n_hyp, n_pts, trunc_sq, exponent, has_compound,
-      magsac_levels, scores, inliers, dots, norms, stream);
+      magsac_levels, k_tile, cluster, threads, scores, inliers, dots, norms, stream);
 }

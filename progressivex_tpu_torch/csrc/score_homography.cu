@@ -10,8 +10,13 @@
 // Bound on an H100: at B = 256 and N = 2304 (2084 valid points, unihouse)
 // the pass does 32 float32 operations per (hypothesis, valid point) pair
 // (the residual 20: projection 12, |pz| test 1, transfer error 7), 49 with
-// four MAGSAC levels (26 MFLOP, 0.39 us at 67 TFLOP/s), and moves 69 KB
-// (0.02 us at 3.35 TB/s): it is bound by arithmetic, not by memory.
+// four MAGSAC levels (26 MFLOP, 0.39 us at 67 TFLOP/s), and moves 62 KB
+// (0.02 us at 3.35 TB/s): by that count it is bound by arithmetic. In
+// instructions a pair costs more than its count says: the two divisions of
+// the transfer error, x = r2 / tau_t^2 and one ladder level are IEEE
+// divisions of about ten instructions each, kept so that r2 and the inlier
+// count match the plain version bit for bit. What the body does to keep the
+// SMs issuing is in score_common.cuh.
 
 #include "score_common.cuh"
 
@@ -20,9 +25,9 @@ namespace {
 struct HomographyR2 {
   float h[9];
 
-  __device__ explicit HomographyR2(const float* d) {
+  __device__ void load(const float* d) {
 #pragma unroll
-    for (int k = 0; k < 9; ++k) h[k] = d[k];
+    for (int k = 0; k < 9; ++k) h[k] = __ldg(d + k);
   }
 
   __device__ float operator()(const float4 p) const {
@@ -42,10 +47,11 @@ struct HomographyR2 {
 extern "C" int score_homography(const void* pts, const void* compound,
                                 const void* pmask, const void* descs, int n_hyp,
                                 int n_pts, float trunc_sq, float exponent,
-                                int has_compound, int magsac_levels, void* scores,
+                                int has_compound, int magsac_levels, int k_tile,
+                                int cluster, int threads, void* scores,
                                 void* inliers, void* dots, void* norms,
                                 void* stream) {
   return progx::launch_scores<HomographyR2>(
       pts, compound, pmask, descs, n_hyp, n_pts, trunc_sq, exponent, has_compound,
-      magsac_levels, scores, inliers, dots, norms, stream);
+      magsac_levels, k_tile, cluster, threads, scores, inliers, dots, norms, stream);
 }

@@ -123,3 +123,33 @@ def test_cpu_tensor_never_needs_the_compiler(monkeypatch):
     kscoring.score_homography(*_torch_inputs(data, descs, compound, pmask),
                               TRUNC_SQ, EXPONENT, True, 4)
     assert kscoring.LAUNCHES == before
+
+
+@pytest.mark.parametrize("b, n", [
+    (1, 128), (4, 256), (4, 384), (4, 2304), (4, 7680), (5, 300), (96, 300),
+    (256, 384), (256, 2304), (256, 7680), (1536, 256), (2049, 7680)])
+def test_tiling_fills_the_card(b, n):
+    """The CUDA launch's tiling (pure arithmetic, so it runs here): valid
+    tile and cluster sizes, a grid that covers the card's 132 SMs wherever
+    B hypotheses and N points allow, and at least 256 points a cluster
+    rank."""
+    n_sms = 132
+    k, cluster, threads = kscoring._tiling(b, n, n_sms)
+    assert k in (1, 2, 4) and 1 <= cluster <= 8
+    assert threads % 32 == 0 and 32 <= threads <= 256
+    blocks = -(-b // k) * cluster
+    assert blocks >= min(n_sms, b * min(8, max(1, n // 256)))
+    assert cluster == 1 or n / cluster >= 256
+    if -(-b // (2 * k)) >= 2 * n_sms and k < 4:
+        raise AssertionError(f"K={k} leaves room for a larger hypothesis tile")
+
+
+@pytest.mark.parametrize("b, n, want", [
+    (256, 2304, (1, 1, 256)), (4, 2304, (1, 8, 128)), (256, 384, (1, 1, 128)),
+    (4, 384, (1, 1, 128)), (1536, 256, (4, 1, 128)), (4, 256, (1, 1, 128)),
+    (256, 7680, (1, 1, 256)), (4, 7680, (1, 8, 256))])
+def test_tiling_at_the_path_shapes(b, n, want):
+    """The tilings the sweep on an H100 (tools/sweep_score_tiling.py) found
+    fastest or within a few percent of it, at the shapes the H and F paths
+    launch."""
+    assert kscoring._tiling(b, n, 132) == want
