@@ -14,7 +14,9 @@ Pallas kernel of the JAX package, is a hand-written CUDA kernel per family
 the CPU.
 
 Ported so far: the multi-homography path (`findHomographies`) and the
-two-view-motion path (`findTwoViewMotions`).
+two-view-motion path (`findTwoViewMotions`), each also batched over many
+scenes (`findHomographiesBatched`, `findTwoViewMotionsBatched`) on the
+engine's row axis.
 """
 
 import torch as _torch
@@ -34,5 +36,9 @@ from progressivex_tpu_torch.api import (  # noqa: E402,F401
     Statistics,
     findHomographies,
     findTwoViewMotions,
+)
+from progressivex_tpu_torch.api_batch import (  # noqa: E402,F401
+    findHomographiesBatched,
+    findTwoViewMotionsBatched,
 )
 from progressivex_tpu_torch.models import get_family  # noqa: E402,F401

@@ -16,6 +16,7 @@ from jax.random's, so a seed does not reproduce the JAX package's run.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 
 import numpy as np
@@ -35,8 +36,9 @@ PAD_LEVELS = (128, 256, 384, 512, 768, 1024, 1536, 2304, 3456, 5120, 7680)
 # Per-family proposal sub-batch caps (the JAX package's measured values,
 # progressivex_tpu/api.py:106-126).
 _MAX_HYP_BY_FAMILY = {"homography": 256, "fundamental": 512}
-# Sub-batches per round; 1 is the JAX package's measured default.
-_MAX_SUBBATCHES = 1
+# Sub-batches per round: PROGX_MAX_SUBBATCHES, default 1, the JAX package's
+# measured default (progressivex_tpu/api.py:29-32, :160-161).
+_MAX_SUBBATCHES = int(os.environ.get("PROGX_MAX_SUBBATCHES", "1"))
 
 
 @dataclasses.dataclass
@@ -177,6 +179,7 @@ def findHomographies(
     do_logging=False,
     random_seed=0,
     with_statistics=False,
+    n_restarts=1,
     magsac_levels=4,
     final_relabel=2,
     max_rounds=10,
@@ -202,8 +205,9 @@ def findHomographies(
         maximum_model_number=maximum_model_number, sampler_id=sampler_id,
         scoring_exponent=scoring_exponent, do_logging=do_logging,
         random_seed=random_seed, with_statistics=with_statistics,
-        magsac_levels=magsac_levels, final_relabel=final_relabel,
-        max_rounds=max_rounds, pearl_iters=pearl_iters, split_pass=split_pass,
+        n_restarts=n_restarts, magsac_levels=magsac_levels,
+        final_relabel=final_relabel, max_rounds=max_rounds,
+        pearl_iters=pearl_iters, split_pass=split_pass,
         max_subbatches=max_subbatches, device=device,
     )
     out = descs.reshape(-1, 3).astype(np.float64)

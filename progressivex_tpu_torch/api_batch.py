@@ -1,0 +1,281 @@
+"""Batched multi-scene front ends — counterpart of progressivex_tpu/api_batch.py
+(its homography and fundamental-matrix entries; the other families come
+with their slices).
+
+  findHomographiesBatched(corrs_list, ...)   -> [([3K_i, 3], labeling_i), ...]
+  findTwoViewMotionsBatched(corrs_list, ...) -> [([3K_i, 3], labeling_i), ...]
+
+The layout is the JAX package's: scenes are grouped by pad level
+(api.PAD_LEVELS); each group is one `engine.fit_rows` call on the card,
+every scene a lane of its row axis; lane counts pad up to the next power
+of two by cyclic replication; restarts are flattened into rows (restart r
+of lane j is row r * lanes + j); `n_valid` and `threshold` ride per row;
+and the winning restart of each lane is chosen on the host
+(`engine.select_restart`). Outputs match the single-scene front ends
+element for element.
+
+Seeds. Row (scene s, restart r) at pad level n_pad draws its samples from
+a CPU torch.Generator seeded with
+
+    np.random.SeedSequence([random_seed, n_pad, s, r]).generate_state(1)[0]
+
+where s is the scene's index in `corrs_list`, never the row's position,
+as the JAX package derives its row keys (api_batch.py:212-227). A scene
+fitted alone, inside a bigger batch or replicated returns the same result;
+filler lanes share their original's seed and are discarded. The numbers
+differ from jax.random's, so a seed does not reproduce the JAX package's
+run, and they differ from the single-scene front ends' (one generator for
+all restarts).
+
+Keywords and defaults are the JAX package's, plus `device` (the card
+unless `device="cpu"`). `mesh` and `n_devices` take their JAX defaults;
+sharding scenes over several cards is not ported (ROADMAP.md A, item 4).
+"""
+
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+import torch
+
+from progressivex_tpu_torch import api as _api
+from progressivex_tpu_torch._device import resolve_device
+from progressivex_tpu_torch.core import engine
+from progressivex_tpu_torch.core.config import EngineConfig, make_params
+from progressivex_tpu_torch.models import get_family
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def row_seed(random_seed: int, n_pad: int, scene: int, restart: int) -> int:
+    """The seed of row (scene, restart) at pad level n_pad."""
+    return int(np.random.SeedSequence(
+        [int(random_seed), int(n_pad), int(scene), int(restart)]).generate_state(1)[0])
+
+
+def _check_mesh(mesh, n_devices):
+    if mesh is not None or (n_devices is not None and int(n_devices) != 1):
+        raise NotImplementedError(
+            "scene sharding over several devices (mesh, n_devices) is not "
+            "ported; the port runs on one card")
+
+
+def _run_batched(
+    family_name,
+    datas,  # list of [n_i, d] float32 arrays
+    weights_list,  # list of [n_i] or None
+    *,
+    thresholds,  # scalar or per-scene list
+    conf,
+    spatial_coherence_weight,
+    neighborhood_ball_radius,
+    maximum_tanimoto_similarity,
+    max_iters,
+    minimum_point_number,
+    maximum_model_number,
+    sampler_id,
+    scoring_exponent,
+    random_seed=0,
+    n_restarts=1,
+    restart_rule="energy",
+    magsac_levels=0,
+    final_relabel=0,
+    final_polish=0,
+    lo_spatial_lambda=0.5,
+    max_rounds=10,
+    pearl_iters=3,
+    split_pass=0,
+    do_logging=False,
+    mesh=None,
+    n_devices=None,
+    device=None,
+):
+    _check_mesh(mesh, n_devices)
+    dev = resolve_device(device)
+    n_scenes = len(datas)
+    th_vec = np.broadcast_to(np.asarray(thresholds, np.float32), (n_scenes,)).copy()
+    family = get_family(family_name)
+    n_hyp = _api._hyp_budget(max_iters, family.max_solutions, family_name)
+    cfg = EngineConfig(
+        family=family_name,
+        n_hypotheses=n_hyp,
+        n_subbatches=_api._n_subbatches(max_iters, n_hyp),
+        sampler_id=int(sampler_id),
+        lo_spatial_lambda=lo_spatial_lambda,
+        n_restarts=1,  # flattened into the row axis below
+        final_polish=int(final_polish),
+        final_relabel=int(final_relabel),
+        magsac_levels=int(magsac_levels),
+        restart_rule=str(restart_rule),
+        max_rounds=int(max_rounds),
+        pearl_iters=int(pearl_iters),
+        split_pass=int(split_pass),
+    )
+    params = make_params(
+        threshold=float(th_vec[0]),  # replaced per row below
+        confidence=conf,
+        spatial_weight=spatial_coherence_weight,
+        neighborhood_radius=neighborhood_ball_radius,
+        max_tanimoto=maximum_tanimoto_similarity,
+        min_inliers=minimum_point_number,
+        max_models=(maximum_model_number if maximum_model_number > 0
+                    else _api._UNLIMITED),
+        scoring_exponent=scoring_exponent,
+        n_valid=0,
+    )
+    n_restarts = max(int(n_restarts), 1)
+
+    buckets: dict[int, list[int]] = {}
+    for i, d in enumerate(datas):
+        buckets.setdefault(_api._pad_to(d.shape[0]), []).append(i)
+
+    results: list = [None] * n_scenes
+    for n_pad in sorted(buckets):
+        idxs = buckets[n_pad]
+        lanes = _next_pow2(len(idxs))
+        lane_ids = [idxs[j % len(idxs)] for j in range(lanes)]
+        d_dim = datas[idxs[0]].shape[1]
+        data = np.zeros((lanes, n_pad, d_dim), np.float32)
+        mask = np.zeros((lanes, n_pad), bool)
+        wts = np.zeros((lanes, n_pad), np.float32)
+        nv = np.zeros((lanes,), np.int64)
+        th = np.zeros((lanes,), np.float32)
+        for j, i in enumerate(lane_ids):
+            n = datas[i].shape[0]
+            data[j, :n] = datas[i]
+            mask[j, :n] = True
+            wts[j, :n] = (1.0 if weights_list is None or weights_list[i] is None
+                          else np.asarray(weights_list[i], np.float32).reshape(-1)[:n])
+            nv[j] = n
+            th[j] = th_vec[i]
+
+        def tile(a):
+            return torch.from_numpy(np.concatenate([a] * n_restarts)).to(dev)
+
+        gens = [torch.Generator().manual_seed(row_seed(random_seed, n_pad, s, r))
+                for r in range(n_restarts) for s in lane_ids]
+        res = engine.fit_rows(
+            family, cfg, params._replace(n_valid=np.tile(nv, n_restarts),
+                                         threshold=np.tile(th, n_restarts)),
+            tile(data), tile(mask), tile(wts), generators=gens)
+        energy = res.energy.cpu().numpy().reshape(n_restarts, lanes)
+        nmod = res.n_models.cpu().numpy().reshape(n_restarts, lanes)
+        for j, i in enumerate(lane_ids[:len(idxs)]):
+            r = engine.select_restart(energy[:, j],
+                                      restart_rule if n_restarts > 1 else "energy",
+                                      nmod[:, j])
+            results[i] = engine.compact_result(
+                engine.row_result(res, r * lanes + j), int(nv[j]))
+        if do_logging:
+            print(f"[progressivex_tpu_torch.batch] {family_name} n_pad={n_pad}: "
+                  f"{len(idxs)} scenes ({lanes} lanes x {n_restarts} restarts)",
+                  file=sys.stderr)
+    return results
+
+
+def _as_scenes(corrs_list, min_points):
+    datas = []
+    for corrs in corrs_list:
+        corrs = np.asarray(corrs, np.float64)
+        if corrs.ndim != 2 or corrs.shape[1] != 4 or corrs.shape[0] < min_points:
+            raise ValueError(f"every corrs should be an array with dims [n,4], "
+                             f"n>={min_points}")
+        datas.append(np.ascontiguousarray(corrs, np.float32))
+    return datas
+
+
+def findHomographiesBatched(
+    corrs_list,
+    threshold=4.0,
+    conf=0.5,
+    spatial_coherence_weight=0.0,
+    neighborhood_ball_radius=200.0,
+    maximum_tanimoto_similarity=0.4,
+    max_iters=1000,
+    minimum_point_number=10,
+    maximum_model_number=-1,
+    sampler_id=3,
+    scoring_exponent=2,
+    do_logging=False,
+    random_seed=0,
+    n_restarts=1,
+    magsac_levels=4,
+    final_relabel=2,
+    max_rounds=10,
+    pearl_iters=3,
+    split_pass=0,
+    mesh=None,
+    n_devices=None,
+    device=None,
+    **engine_kwargs,
+):
+    """Multi-homography fitting over a list of scenes in one batch on the
+    card. Each element of corrs_list is an [n_i, 4] array; returns a list
+    of ([3K_i, 3] stacked H rows, labeling_i) in input order, in
+    `findHomographies`' format."""
+    out = _run_batched(
+        "homography", _as_scenes(corrs_list, 4), None,
+        thresholds=threshold, conf=conf,
+        spatial_coherence_weight=spatial_coherence_weight,
+        neighborhood_ball_radius=neighborhood_ball_radius,
+        maximum_tanimoto_similarity=maximum_tanimoto_similarity,
+        max_iters=max_iters, minimum_point_number=minimum_point_number,
+        maximum_model_number=maximum_model_number, sampler_id=sampler_id,
+        scoring_exponent=scoring_exponent, do_logging=do_logging,
+        random_seed=random_seed, n_restarts=n_restarts,
+        magsac_levels=magsac_levels, final_relabel=final_relabel,
+        max_rounds=max_rounds, pearl_iters=pearl_iters, split_pass=split_pass,
+        mesh=mesh, n_devices=n_devices, device=device, **engine_kwargs,
+    )
+    return [(d.reshape(-1, 3).astype(np.float64), l) for d, l in out]
+
+
+def findTwoViewMotionsBatched(
+    corrs_list,
+    threshold=4.0,
+    conf=0.5,
+    spatial_coherence_weight=0.0,
+    neighborhood_ball_radius=200.0,
+    maximum_tanimoto_similarity=0.4,
+    max_iters=1000,
+    minimum_point_number=10,
+    maximum_model_number=-1,
+    sampler_id=3,
+    scoring_exponent=3,
+    do_logging=False,
+    random_seed=0,
+    n_restarts=4,
+    magsac_levels=4,
+    final_relabel=2,
+    restart_rule="energy+5k",
+    max_rounds=10,
+    pearl_iters=3,
+    split_pass=0,
+    mesh=None,
+    n_devices=None,
+    device=None,
+    **engine_kwargs,
+):
+    """Multi two-view-motion fitting over a list of scenes in one batch on
+    the card. Returns a list of ([3K_i, 3] stacked F rows, labeling_i);
+    the defaults (four restarts as rows, "energy+5k", MAGSAC ranking, final
+    relabel) are `findTwoViewMotions`'."""
+    out = _run_batched(
+        "fundamental", _as_scenes(corrs_list, 7), None,
+        thresholds=threshold, conf=conf,
+        spatial_coherence_weight=spatial_coherence_weight,
+        neighborhood_ball_radius=neighborhood_ball_radius,
+        maximum_tanimoto_similarity=maximum_tanimoto_similarity,
+        max_iters=max_iters, minimum_point_number=minimum_point_number,
+        maximum_model_number=maximum_model_number, sampler_id=sampler_id,
+        scoring_exponent=scoring_exponent, do_logging=do_logging,
+        random_seed=random_seed, n_restarts=n_restarts,
+        magsac_levels=magsac_levels, final_relabel=final_relabel,
+        restart_rule=restart_rule, max_rounds=max_rounds,
+        pearl_iters=pearl_iters, split_pass=split_pass,
+        mesh=mesh, n_devices=n_devices, device=device, **engine_kwargs,
+    )
+    return [(d.reshape(-1, 3).astype(np.float64), l) for d, l in out]

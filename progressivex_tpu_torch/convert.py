@@ -51,6 +51,25 @@ def presampled(idx_all, ok_all, idx_ext, ok_ext, *, device):
             _tensor(idx_ext, np.int64, device), _tensor(ok_ext, bool, device))
 
 
+def presampled_rows(idx_all, ok_all, idx_ext, ok_ext, *, device):
+    """`engine.fit_rows`' `presampled` tuple from the JAX package's
+    per-row sample arrays: [R, rounds, B, m] indices, [R, rounds, B]
+    flags, and the [R, S-1, B, m] / [R, S-1, B] extension pools. In the
+    batched front ends the JAX package draws row (scene s, restart r) of
+    pad level n_pad with the key
+    fold_in(fold_in(fold_in(PRNGKey(seed), n_pad), s), r)
+    (progressivex_tpu/api_batch.py:212-227), and inside the fit each row
+    splits it as `engine.fit` does; the caller draws with those keys on
+    its side and hands the arrays here."""
+    shapes = [np.shape(a) for a in (idx_all, ok_all, idx_ext, ok_ext)]
+    if [len(s) for s in shapes] != [4, 3, 4, 3] or shapes[1][::2] != shapes[0][::2] \
+            or shapes[3][::2] != shapes[0][::2] or shapes[2][::2] != shapes[0][::2] \
+            or shapes[2][3] != shapes[0][3]:
+        raise ValueError(f"per-row sample shapes {shapes}: expected [R, rounds, B, m], "
+                         "[R, rounds, B], [R, S-1, B, m], [R, S-1, B]")
+    return presampled(idx_all, ok_all, idx_ext, ok_ext, device=device)
+
+
 def fit_state(descs, active, labels, compound_pref, *, device) -> dict:
     """A FitResult's descs [K, D], active [K], labels [N] and
     compound_pref [N] as the port's tensors (float32, bool, int64,

@@ -26,6 +26,17 @@
 // about 1.5 us. So issue slots, dependency latency and the launch set the
 // time, not bytes, and the design aims at keeping every SM issuing.
 //
+// Rows. One launch scores R independent problems (the rows of the engine's
+// row axis: scenes, restarts): data [R, N, 4], compound and mask [R, N],
+// descriptors [R, B, 9], tau_t^2 and has_compound per row, outputs [R, B].
+// This is what `fused_scores` computes under `jax.vmap`, where the
+// pallas_call gains a grid axis. A block belongs to one row, and a cluster
+// too: the grid is R x ceil(B / K) x S blocks, row-major. K may follow R B,
+// but the cluster size and the thread count follow the row's own (B, N)
+// (kernels/scoring._tiling), and K does not change a sum's order (each
+// hypothesis is summed over the same lanes, warps and ranks whatever K),
+// so a row's outputs do not depend on R or on the other rows, bit for bit.
+//
 // Design.
 //  - A block owns a tile of K (1, 2 or 4) hypotheses; each thread keeps their K
 //    descriptors (9 K floats) and 5 K running sums in registers. The block's
@@ -85,19 +96,30 @@ constexpr int kPointBytes = 21;       // float4 + compound + mask byte
 constexpr int kGenericLevels = -1;    // M of the instance for any other m
 
 struct ScoreArgs {
-  const float4* pts;
-  const float* compound;
-  const uint8_t* mask;
-  const float* descs;
-  int n_hyp, n_pts;
+  const float4* pts;       // [R, N]
+  const float* compound;   // [R, N]
+  const uint8_t* mask;     // [R, N]
+  const float* descs;      // [R, B, 9]
+  const float* trunc_sq;   // [R]
+  const uint8_t* has_compound;  // [R]
+  int n_hyp, n_pts;        // B and N of a row
+  int hyp_tiles;           // ceil(B / K): hypothesis tiles a row
   int chunk;  // points per cluster rank, a multiple of 16
   int tile;   // points per ring stage, a multiple of 16
-  float trunc_sq, exponent;
-  int has_compound, magsac_levels;
-  float* scores;
+  float exponent;
+  int magsac_levels;
+  float* scores;           // [R, B], and the same for the three below
   int* inliers;
   float* dots;
   float* norms;
+};
+
+// One row's inputs, offset from the launch's.
+struct RowPtrs {
+  const float4* pts;
+  const float* compound;
+  const uint8_t* mask;
+  bool bulk;  // compound and mask start on a 16-byte boundary
 };
 
 // Dynamic shared memory: the two ring stages, two mbarriers, the per-warp
@@ -150,17 +172,24 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
+// Points of a stage whose compound and mask come by bulk copy: up to the
+// last multiple of 16, or none where the row is not 16-byte aligned.
+__device__ __forceinline__ int bulk_points(const RowPtrs& r, int c) {
+  return r.bulk ? c & ~15 : 0;
+}
+
 // Thread 0: start the copy of points [start, start + c) into a ring stage.
-// Compound and mask go by bulk copy up to the last multiple of 16 points;
+// Compound and mask go by bulk copy for the first bulk_points(c) points;
 // the consumer loads the rest.
-__device__ __forceinline__ void issue_tile(const ScoreArgs& a, int start, int c,
-                                           unsigned char* stage, uint64_t* bar) {
-  const int c16 = c & ~15;
+__device__ __forceinline__ void issue_tile(const ScoreArgs& a, const RowPtrs& r,
+                                           int start, int c, unsigned char* stage,
+                                           uint64_t* bar) {
+  const int c16 = bulk_points(r, c);
   mbar_arrive_expect_tx(bar, 16u * c + 5u * c16);
-  bulk_load(stage, a.pts + start, 16u * c, bar);
+  bulk_load(stage, r.pts + start, 16u * c, bar);
   if (c16 > 0) {
-    bulk_load(stage + 16 * a.tile, a.compound + start, 4u * c16, bar);
-    bulk_load(stage + 20 * a.tile, a.mask + start, c16, bar);
+    bulk_load(stage + 16 * a.tile, r.compound + start, 4u * c16, bar);
+    bulk_load(stage + 20 * a.tile, r.mask + start, c16, bar);
   }
 }
 
@@ -210,8 +239,9 @@ __device__ __forceinline__ int warp_reduce(float (&acc)[K][5], int lane) {
   return k0;
 }
 
-// Grid: S x ceil(B / K) blocks in clusters of S along x; block x holds
-// hypotheses [K (x / S), K (x / S) + K) and cluster rank r the points
+// Grid: R x ceil(B / K) x S blocks in clusters of S along x, row-major;
+// block x belongs to row x / (ceil(B / K) S) and holds that row's
+// hypotheses [K t, K t + K) for its tile t, and cluster rank r the points
 // [r chunk, (r + 1) chunk).
 template <class Residual, int K, int M>
 __global__ void __launch_bounds__(kMaxThreads) score_kernel(const ScoreArgs a) {
@@ -221,7 +251,18 @@ __global__ void __launch_bounds__(kMaxThreads) score_kernel(const ScoreArgs a) {
   const int rank = static_cast<int>(cluster.block_rank());
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n_threads = blockDim.x, n_warps = n_threads >> 5;
-  const int b0 = static_cast<int>(blockIdx.x) / n_ranks * K;
+  const int row_blocks = a.hyp_tiles * n_ranks;
+  const int row = static_cast<int>(blockIdx.x) / row_blocks;
+  const int b0 = static_cast<int>(blockIdx.x) % row_blocks / n_ranks * K;
+  const size_t pt0 = static_cast<size_t>(row) * a.n_pts;
+  const size_t hyp0 = static_cast<size_t>(row) * a.n_hyp;
+  RowPtrs r;
+  r.pts = a.pts + pt0;
+  r.compound = a.compound + pt0;
+  r.mask = a.mask + pt0;
+  r.bulk = ((reinterpret_cast<uintptr_t>(r.compound) |
+             reinterpret_cast<uintptr_t>(r.mask)) & 15) == 0;
+  const float trunc_sq = a.trunc_sq[row];
   const int tile = a.tile;
   const int p0 = min(a.n_pts, rank * a.chunk);
   const int p1 = min(a.n_pts, p0 + a.chunk);
@@ -236,7 +277,7 @@ __global__ void __launch_bounds__(kMaxThreads) score_kernel(const ScoreArgs a) {
     mbar_init(&bar[1], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     for (int t = 0; t < min(2, n_tiles); ++t)
-      issue_tile(a, p0 + t * tile, min(tile, p1 - p0 - t * tile),
+      issue_tile(a, r, p0 + t * tile, min(tile, p1 - p0 - t * tile),
                  smem + t * kPointBytes * tile, &bar[t]);
   }
 
@@ -246,11 +287,11 @@ __global__ void __launch_bounds__(kMaxThreads) score_kernel(const ScoreArgs a) {
   float acc[K][5];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    res[k].load(a.descs + 9 * min(b0 + k, a.n_hyp - 1));
+    res[k].load(a.descs + 9 * (hyp0 + min(b0 + k, a.n_hyp - 1)));
 #pragma unroll
     for (int f = 0; f < 5; ++f) acc[k][f] = 0.f;
   }
-  const float inl_thr = a.trunc_sq / 2.25f;
+  const float inl_thr = trunc_sq / 2.25f;
   __syncthreads();  // the mbarriers are initialised
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -260,10 +301,9 @@ __global__ void __launch_bounds__(kMaxThreads) score_kernel(const ScoreArgs a) {
     uint8_t* s_mask = stage + 20 * tile;
     const int start = p0 + t * tile;
     const int c = min(tile, p1 - start);
-    const int tail = (c & ~15) + tid;
-    if (tail < c) {
-      s_comp[tail] = a.compound[start + tail];
-      s_mask[tail] = a.mask[start + tail];
+    for (int j = bulk_points(r, c) + tid; j < c; j += n_threads) {
+      s_comp[j] = r.compound[start + j];
+      s_mask[j] = r.mask[start + j];
     }
     mbar_wait(&bar[t & 1], (t >> 1) & 1);
     __syncthreads();  // the tail is in place
@@ -279,7 +319,7 @@ __global__ void __launch_bounds__(kMaxThreads) score_kernel(const ScoreArgs a) {
       for (int k = 0; k < K; ++k) r2[k] = res[k](p);
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        const float x = v ? r2[k] / a.trunc_sq : 1.0f;
+        const float x = v ? r2[k] / trunc_sq : 1.0f;
         const float pref = fmaxf(1.0f - x, 0.0f);
         float rank_pref = pref;
         if (M == 4) {  // the divisors (j/4)^2 are 1/16, 1/4, 9/16, 1
@@ -301,7 +341,7 @@ __global__ void __launch_bounds__(kMaxThreads) score_kernel(const ScoreArgs a) {
     __syncthreads();  // every thread is done with this stage
     if (tid == 0 && t + 2 < n_tiles) {
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      issue_tile(a, start + 2 * tile, min(tile, p1 - start - 2 * tile), stage,
+      issue_tile(a, r, start + 2 * tile, min(tile, p1 - start - 2 * tile), stage,
                  &bar[t & 1]);
     }
   }
@@ -336,12 +376,12 @@ __global__ void __launch_bounds__(kMaxThreads) score_kernel(const ScoreArgs a) {
         for (int f = 0; f < 5; ++f) s[f] += pr[tid * 5 + f];
       }
     }
-    const int b = b0 + tid;
+    const size_t b = hyp0 + b0 + tid;
     const float shared = fmaxf(s[1], 0.0f);  // ^ exponent, as torch's pow takes 1 and 2
     const float penalty = a.exponent == 1.0f   ? shared
                           : a.exponent == 2.0f ? shared * shared
                                                : powf(shared, a.exponent);
-    a.scores[b] = a.has_compound ? s[0] - penalty : s[0];
+    a.scores[b] = a.has_compound[row] ? s[0] - penalty : s[0];
     a.dots[b] = s[2];
     a.norms[b] = s[3];
     a.inliers[b] = static_cast<int>(s[4]);
@@ -350,11 +390,13 @@ __global__ void __launch_bounds__(kMaxThreads) score_kernel(const ScoreArgs a) {
 }
 
 template <class Residual, int K, int M>
-cudaError_t launch_instance(const ScoreArgs& a, int cluster, int threads,
+cudaError_t launch_instance(ScoreArgs a, int n_rows, int cluster, int threads,
                             cudaStream_t stream) {
-  const int hyp_tiles = (a.n_hyp + K - 1) / K;
+  a.hyp_tiles = (a.n_hyp + K - 1) / K;
+  const long long blocks = static_cast<long long>(n_rows) * a.hyp_tiles * cluster;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(hyp_tiles * cluster), 1, 1);
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks), 1, 1);
   cfg.blockDim = dim3(static_cast<unsigned>(threads), 1, 1);
   cfg.dynamicSmemBytes = static_cast<size_t>(smem_bytes(a.tile, K, threads));
   cfg.stream = stream;
@@ -372,40 +414,46 @@ cudaError_t launch_instance(const ScoreArgs& a, int cluster, int threads,
 }
 
 template <class Residual, int K>
-cudaError_t launch_levels(const ScoreArgs& a, int cluster, int threads,
+cudaError_t launch_levels(const ScoreArgs& a, int n_rows, int cluster, int threads,
                           cudaStream_t stream) {
-  if (a.magsac_levels <= 0) return launch_instance<Residual, K, 0>(a, cluster, threads, stream);
-  if (a.magsac_levels == 4) return launch_instance<Residual, K, 4>(a, cluster, threads, stream);
-  return launch_instance<Residual, K, kGenericLevels>(a, cluster, threads, stream);
+  if (a.magsac_levels <= 0)
+    return launch_instance<Residual, K, 0>(a, n_rows, cluster, threads, stream);
+  if (a.magsac_levels == 4)
+    return launch_instance<Residual, K, 4>(a, n_rows, cluster, threads, stream);
+  return launch_instance<Residual, K, kGenericLevels>(a, n_rows, cluster, threads, stream);
 }
 
-// Launches score_kernel<Residual, k_tile, .> on `stream` over a cluster of
-// `cluster` blocks per hypothesis tile, `threads` threads a block; returns
-// the launch's error or else cudaGetLastError(). pts, compound and pmask
-// (bool as bytes) must be 16-byte aligned.
+// Launches score_kernel<Residual, k_tile, .> on `stream` over n_rows rows of
+// n_hyp hypotheses and n_pts points each, a cluster of `cluster` blocks per
+// hypothesis tile, `threads` threads a block; returns the launch's error or
+// else cudaGetLastError(). pts, compound and pmask (bool as bytes) must be
+// 16-byte aligned; trunc_sq (f32) and has_compound (bytes) hold one value a
+// row.
 template <class Residual>
 int launch_scores(const void* pts, const void* compound, const void* pmask,
-                  const void* descs, int n_hyp, int n_pts, float trunc_sq,
-                  float exponent, int has_compound, int magsac_levels, int k_tile,
-                  int cluster, int threads, void* scores, void* inliers, void* dots,
-                  void* norms, void* stream) {
-  if (n_hyp < 1 || n_pts < 0 || cluster < 1 || cluster > kMaxCluster ||
+                  const void* descs, int n_rows, int n_hyp, int n_pts,
+                  const void* trunc_sq, const void* has_compound, float exponent,
+                  int magsac_levels, int k_tile, int cluster, int threads,
+                  void* scores, void* inliers, void* dots, void* norms,
+                  void* stream) {
+  if (n_rows < 1 || n_hyp < 1 || n_pts < 0 || cluster < 1 || cluster > kMaxCluster ||
       threads < 32 || threads > kMaxThreads || threads % 32 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int per_rank = (n_pts + cluster - 1) / cluster;
   const int chunk = per_rank < 16 ? 16 : (per_rank + 15) & ~15;
   const ScoreArgs a = {
       static_cast<const float4*>(pts), static_cast<const float*>(compound),
-      static_cast<const uint8_t*>(pmask), static_cast<const float*>(descs), n_hyp,
-      n_pts, chunk, chunk < kMaxTile ? chunk : kMaxTile, trunc_sq, exponent,
-      has_compound, magsac_levels, static_cast<float*>(scores),
-      static_cast<int*>(inliers), static_cast<float*>(dots), static_cast<float*>(norms)};
+      static_cast<const uint8_t*>(pmask), static_cast<const float*>(descs),
+      static_cast<const float*>(trunc_sq), static_cast<const uint8_t*>(has_compound),
+      n_hyp, n_pts, 0, chunk, chunk < kMaxTile ? chunk : kMaxTile, exponent,
+      magsac_levels, static_cast<float*>(scores), static_cast<int*>(inliers),
+      static_cast<float*>(dots), static_cast<float*>(norms)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (k_tile) {
-    case 1: err = launch_levels<Residual, 1>(a, cluster, threads, s); break;
-    case 2: err = launch_levels<Residual, 2>(a, cluster, threads, s); break;
-    case 4: err = launch_levels<Residual, 4>(a, cluster, threads, s); break;
+    case 1: err = launch_levels<Residual, 1>(a, n_rows, cluster, threads, s); break;
+    case 2: err = launch_levels<Residual, 2>(a, n_rows, cluster, threads, s); break;
+    case 4: err = launch_levels<Residual, 4>(a, n_rows, cluster, threads, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t last = cudaGetLastError();

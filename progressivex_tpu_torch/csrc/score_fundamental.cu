@@ -47,13 +47,14 @@ struct SampsonR2 {
 }  // namespace
 
 extern "C" int score_fundamental(const void* pts, const void* compound,
-                                 const void* pmask, const void* descs, int n_hyp,
-                                 int n_pts, float trunc_sq, float exponent,
-                                 int has_compound, int magsac_levels, int k_tile,
-                                 int cluster, int threads, void* scores,
-                                 void* inliers, void* dots, void* norms,
-                                 void* stream) {
+                                 const void* pmask, const void* descs, int n_rows,
+                                 int n_hyp, int n_pts, const void* trunc_sq,
+                                 const void* has_compound, float exponent,
+                                 int magsac_levels, int k_tile, int cluster,
+                                 int threads, void* scores, void* inliers,
+                                 void* dots, void* norms, void* stream) {
   return progx::launch_scores<SampsonR2>(
-      pts, compound, pmask, descs, n_hyp, n_pts, trunc_sq, exponent, has_compound,
-      magsac_levels, k_tile, cluster, threads, scores, inliers, dots, norms, stream);
+      pts, compound, pmask, descs, n_rows, n_hyp, n_pts, trunc_sq, has_compound,
+      exponent, magsac_levels, k_tile, cluster, threads, scores, inliers, dots, norms,
+      stream);
 }

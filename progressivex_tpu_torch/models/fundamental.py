@@ -10,6 +10,10 @@ Sampson distance. The proposal scorer is the fused CUDA kernel
 (kernels/scoring.score_fundamental). The reasons behind each step (the
 best-conditioned epipole, the per-refit weighted conditioning, the
 Sampson reweighting) are in the JAX module and hold here unchanged.
+
+`_nonminimal`, `_refine` and `_squared_residual` take the scene either as
+data [N, 4] or with a leading row axis, data [R, N, 4]; their weights and
+descriptors then carry the row axis first too (models/base.py).
 """
 
 from __future__ import annotations
@@ -17,9 +21,11 @@ from __future__ import annotations
 import torch
 
 from progressivex_tpu_torch.kernels.scoring import score_fundamental
-from progressivex_tpu_torch.models.base import ModelFamily, register_family
-from progressivex_tpu_torch.ops.linalg import (cubic_roots_real, hartley_normalize,
-                                               nullspace_exact, smallest_eigvec_psd)
+from progressivex_tpu_torch.models.base import (ModelFamily, point_columns,
+                                                register_family, row_view)
+from progressivex_tpu_torch.ops.linalg import (cubic_roots_real, gram, hartley_normalize,
+                                               nullspace_exact, row_sum,
+                                               smallest_eigvec_psd)
 
 _EPS = 1e-12
 
@@ -136,13 +142,13 @@ def _minimal_batched(samples):
 
 def _nonminimal(data, weights):
     """Normalized weighted eight-point with rank-2 projection, conditioned
-    on the weights of each refit. data [N, 4], weights [..., N] ->
-    (descs [..., 9], valid [...])."""
+    on the weights of each refit. data [N, 4] or [R, N, 4], weights
+    [(R,) ..., N] -> (descs [(R,) ..., 9], valid [(R,) ...])."""
     sw = torch.sqrt(torch.clamp(weights, min=0.0))
-    n1, T1 = hartley_normalize(data[:, :2], weights)
-    n2, T2 = hartley_normalize(data[:, 2:4], weights)
+    n1, T1 = hartley_normalize(row_view(data[..., :2], data, weights, 2), weights)
+    n2, T2 = hartley_normalize(row_view(data[..., 2:4], data, weights, 2), weights)
     A = _epipolar_rows(n1, n2, sw)  # [..., N, 9]
-    M = A.transpose(-1, -2) @ A
+    M = gram(A, A)
     Fn = smallest_eigvec_psd(M).reshape(*weights.shape[:-1], 3, 3)
     # Rank 2: subtract the smallest singular triplet, F - (F v3) v3^T with
     # v3 the smallest eigenvector of F^T F.
@@ -155,9 +161,10 @@ def _nonminimal(data, weights):
 
 def _sampson_parts(data, descs):
     """(numerator x2^T F x1, Sampson denominator). data [N, 4], descs
-    [..., 9] -> ([..., N], [..., N])."""
+    [..., 9] -> ([..., N], [..., N]); or data [R, N, 4], descs [R, ..., 9]
+    -> [R, ..., N] each."""
     F = descs[..., :, None]  # [..., 9, 1] broadcasts against [N]
-    x1, y1, x2, y2 = data[:, 0], data[:, 1], data[:, 2], data[:, 3]
+    x1, y1, x2, y2 = point_columns(data, descs)
     fx0 = F[..., 0, :] * x1 + F[..., 1, :] * y1 + F[..., 2, :]
     fx1 = F[..., 3, :] * x1 + F[..., 4, :] * y1 + F[..., 5, :]
     fx2 = F[..., 6, :] * x1 + F[..., 7, :] * y1 + F[..., 8, :]
@@ -169,7 +176,8 @@ def _sampson_parts(data, descs):
 
 
 def _squared_residual(data, descs):
-    """Squared Sampson distance. data [N, 4], descs [..., 9] -> [..., N]."""
+    """Squared Sampson distance. data [N, 4], descs [..., 9] -> [..., N];
+    or data [R, N, 4], descs [R, ..., 9] -> [R, ..., N]."""
     num, den = _sampson_parts(data, descs)
     return num * num / torch.clamp(den, min=_EPS)
 
@@ -177,9 +185,9 @@ def _squared_residual(data, descs):
 def _refine(data, weights, init_desc):
     """Sampson-reweighted eight-point: row weights w_i / den_i under the
     current model, with tiny denominators clamped to 5% of the weighted
-    mean. weights [..., N], init_desc [..., 9]."""
+    mean. weights [(R,) ..., N], init_desc [(R,) ..., 9]."""
     _, den = _sampson_parts(data, init_desc)
-    mean_den = (den * weights).sum(-1) / torch.clamp(weights.sum(-1), min=_EPS)
+    mean_den = row_sum(den * weights) / torch.clamp(row_sum(weights), min=_EPS)
     w_s = weights / torch.maximum(den, 0.05 * torch.clamp(mean_den, min=_EPS)[..., None])
     return _nonminimal(data, w_s)
 

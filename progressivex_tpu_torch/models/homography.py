@@ -5,6 +5,12 @@ image-1 points to image-2 points. Minimal = 4-point DLT with an exact null
 space, non-minimal = weighted DLT through the 9x9 normal matrix, residual =
 squared transfer error in the destination image. The proposal scorer is
 the fused CUDA kernel (kernels/scoring.score_homography).
+
+`_nonminimal` and `_squared_residual` take the scene either as data
+[N, 4] or with a leading row axis, data [R, N, 4] (one scene or restart a
+row); their weights and descriptors then carry the row axis first too
+(models/base.py). `_minimal_batched` solves a flat batch of samples, so
+the engine flattens rows and hypotheses into it.
 """
 
 from __future__ import annotations
@@ -12,8 +18,10 @@ from __future__ import annotations
 import torch
 
 from progressivex_tpu_torch.kernels.scoring import score_homography
-from progressivex_tpu_torch.models.base import ModelFamily, register_family
-from progressivex_tpu_torch.ops.linalg import nullspace_exact, smallest_eigvec_psd
+from progressivex_tpu_torch.models.base import (ModelFamily, point_columns,
+                                                register_family, row_view)
+from progressivex_tpu_torch.ops.linalg import (gram, nullspace_exact, row_sum,
+                                               smallest_eigvec_psd)
 
 _EPS = 1e-12
 
@@ -107,52 +115,60 @@ def _minimal_batched(samples):
 
 
 def _scene_conditioners(data):
-    """Scene-level, weight-independent Hartley-style conditioning.
-    Returns (n1 [N, 2], n2 [N, 2], (c1, s1), (c2, s2))."""
+    """Scene-level, weight-independent Hartley-style conditioning, one per
+    row of data [..., N, 4], over all of the row's N points, padding
+    included, as the JAX package conditions (its models/homography.py:
+    202-223; conditioning only needs coordinates at O(1)). Returns
+    (n1 [..., N, 2], n2 [..., N, 2], (c1 [..., 2], s1 [...]), (c2, s2))."""
     sqrt2 = _sqrt2(data)
 
+    n = data.shape[-2]
+
     def stats(p):
-        c = p.mean(0)
-        d = torch.linalg.vector_norm(p - c, dim=-1).mean()
+        c = row_sum(p, -2) / n
+        d = row_sum(torch.linalg.vector_norm(p - c[..., None, :], dim=-1)) / n
         return c, sqrt2 / torch.clamp(d, min=_EPS)
 
-    c1, s1 = stats(data[:, :2])
-    c2, s2 = stats(data[:, 2:4])
-    return (data[:, :2] - c1) * s1, (data[:, 2:4] - c2) * s2, (c1, s1), (c2, s2)
+    c1, s1 = stats(data[..., :2])
+    c2, s2 = stats(data[..., 2:4])
+    return ((data[..., :2] - c1[..., None, :]) * s1[..., None, None],
+            (data[..., 2:4] - c2[..., None, :]) * s2[..., None, None],
+            (c1, s1), (c2, s2))
 
 
 def _nonminimal(data, weights):
-    """Weighted DLT over all points. data [N, 4], weights [..., N] ->
-    (descs [..., 9], valid [...])."""
+    """Weighted DLT over all points. data [N, 4] or [R, N, 4], weights
+    [(R,) ..., N] -> (descs [(R,) ..., 9], valid [(R,) ...])."""
     n1, n2, (c1, s1), (c2, s2) = _scene_conditioners(data)
-    r0, r1 = _dlt_rows(n1[:, 0], n1[:, 1], n2[:, 0], n2[:, 1])  # [N, 9]
+    r0, r1 = _dlt_rows(n1[..., 0], n1[..., 1], n2[..., 0], n2[..., 1])  # [(R,) N, 9]
+    r0, r1 = row_view(r0, data, weights, 2), row_view(r1, data, weights, 2)
     w = torch.clamp(weights, min=0.0)
-    M = ((w[..., :, None] * r0).transpose(-1, -2) @ r0
-         + (w[..., :, None] * r1).transpose(-1, -2) @ r1)  # [..., 9, 9]
+    M = gram(r0, r0, w) + gram(r1, r1, w)  # [..., 9, 9]
     Hn = smallest_eigvec_psd(M).reshape(*weights.shape[:-1], 3, 3)
     one, zero = torch.ones_like(s1), torch.zeros_like(s1)
     T1 = torch.stack([
-        torch.stack([s1, zero, -s1 * c1[0]]),
-        torch.stack([zero, s1, -s1 * c1[1]]),
-        torch.stack([zero, zero, one]),
-    ])
+        torch.stack([s1, zero, -s1 * c1[..., 0]], -1),
+        torch.stack([zero, s1, -s1 * c1[..., 1]], -1),
+        torch.stack([zero, zero, one], -1),
+    ], -2)
     T2inv = torch.stack([
-        torch.stack([one / s2, zero, c2[0]]),
-        torch.stack([zero, one / s2, c2[1]]),
-        torch.stack([zero, zero, one]),
-    ])
-    H = _normalize_scale(T2inv @ Hn @ T1)
+        torch.stack([one / s2, zero, c2[..., 0]], -1),
+        torch.stack([zero, one / s2, c2[..., 1]], -1),
+        torch.stack([zero, zero, one], -1),
+    ], -2)
+    H = _normalize_scale(row_view(T2inv, data, weights, 2) @ Hn
+                         @ row_view(T1, data, weights, 2))
     valid = (torch.isfinite(H).all(-1).all(-1) & (_det3(H).abs() > 1e-10)
              & ((weights > 0).sum(-1) >= 4))
     return H.reshape(*weights.shape[:-1], 9), valid
 
 
 def _squared_residual(data, descs):
-    """Squared transfer error. data [N, 4], descs [..., 9] -> [..., N].
-    Points whose image lies at the plane at infinity of H (|pz| <= 1e-9)
-    get 1e18."""
+    """Squared transfer error. data [N, 4], descs [..., 9] -> [..., N]; or
+    data [R, N, 4], descs [R, ..., 9] -> [R, ..., N]. Points whose image
+    lies at the plane at infinity of H (|pz| <= 1e-9) get 1e18."""
     H = descs[..., :, None]  # [..., 9, 1] broadcasts against [N]
-    x1, y1, x2, y2 = data[:, 0], data[:, 1], data[:, 2], data[:, 3]
+    x1, y1, x2, y2 = point_columns(data, descs)
     px = H[..., 0, :] * x1 + H[..., 1, :] * y1 + H[..., 2, :]
     py = H[..., 3, :] * x1 + H[..., 4, :] * y1 + H[..., 5, :]
     pz = H[..., 6, :] * x1 + H[..., 7, :] * y1 + H[..., 8, :]

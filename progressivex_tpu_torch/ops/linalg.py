@@ -11,6 +11,13 @@ other signs and bases. The JAX package keeps a separate lanes-major form
 (`gauss_jordan_solve_lanes`, `nullspace_exact_lanes`) with the batch axis
 last for the TPU's vector lanes; here one batch-first form serves both:
 every function takes any number of leading batch dimensions.
+
+`row_sum` is the sum over a long axis (the points) that every row of the
+engine's row axis takes: a fixed pairwise tree of elementwise adds, so that
+a row's float32 sum is the same bits whatever the other rows are and
+however many there are. torch's reduction kernels and cuBLAS choose how to
+split a long axis from the whole tensor's shape, so on the card their sums
+move with the batch size (and a fit's borderline decisions with them).
 """
 
 from __future__ import annotations
@@ -23,6 +30,32 @@ _EPS = 1e-12
 _BIG = 1e18
 
 
+def row_sum(x, dim: int = -1):
+    """Sum of x over `dim` in a fixed order: the axis, padded with zeros to
+    a power of two, halves by elementwise adds until one element is left.
+    Every add is elementwise, so each output's bits depend on its own
+    inputs only."""
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    width = 1 << max(n - 1, 0).bit_length()
+    if width != n:
+        x = torch.nn.functional.pad(x, (0, width - n))
+    while width > 1:
+        width //= 2
+        x = x[..., :width] + x[..., width:]
+    return x[..., 0]
+
+
+def gram(a, b, weights=None):
+    """sum_n w_n a_n b_n^T for a [..., N, p], b [..., N, q] and weights
+    [..., N] (all ones if None) -> [..., p, q], summed by `row_sum` (the
+    normal matrices of the weighted fits)."""
+    at, bt = a.transpose(-1, -2), b.transpose(-1, -2)
+    if weights is not None:
+        at = at * weights[..., None, :]
+    return row_sum(at[..., :, None, :] * bt[..., None, :, :])
+
+
 def hartley_normalize(pts, weights):
     """Weighted Hartley normalization of 2D points pts [..., N, 2] under
     weights [..., N] (leading dimensions broadcast).
@@ -30,11 +63,11 @@ def hartley_normalize(pts, weights):
     Returns (pts_norm [..., N, 2], T [..., 3, 3]) with p_norm_h = T @ p_h:
     the weighted centroid maps to the origin, the weighted mean distance
     to sqrt(2)."""
-    wsum = torch.clamp(weights.sum(-1), min=_EPS)
-    mean = (weights[..., :, None] * pts).sum(-2) / wsum[..., None]
+    wsum = torch.clamp(row_sum(weights), min=_EPS)
+    mean = row_sum(weights[..., :, None] * pts, -2) / wsum[..., None]
     centered = pts - mean[..., None, :]
     dist = torch.linalg.vector_norm(centered, dim=-1)
-    mean_dist = (weights * dist).sum(-1) / wsum
+    mean_dist = row_sum(weights * dist) / wsum
     sqrt2 = torch.tensor(2.0, dtype=pts.dtype, device=pts.device).sqrt()
     scale = sqrt2 / torch.clamp(mean_dist, min=_EPS)
     one, zero = torch.ones_like(scale), torch.zeros_like(scale)

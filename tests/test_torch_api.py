@@ -105,7 +105,8 @@ def test_convert_carries_config_and_params():
 def _port_files():
     pkg = os.path.join(REPO, "progressivex_tpu_torch")
     files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "tools", "profile_torch_fit.py")]
+             os.path.join(REPO, "tools", "profile_torch_fit.py"),
+             os.path.join(REPO, "tools", "score_golden.py")]
     for root, _, names in os.walk(pkg):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files
@@ -127,7 +128,8 @@ def test_port_imports_nothing_of_jax():
                 assert name.split(".")[0] not in forbidden, f"{path}: imports {name}"
     code = ("import sys, progressivex_tpu_torch, progressivex_tpu_torch.eval.adelaide, "
             "progressivex_tpu_torch.convert, progressivex_tpu_torch.kernels._build, "
-            "progressivex_tpu_torch.models.fundamental; "
+            "progressivex_tpu_torch.models.fundamental, progressivex_tpu_torch.api_batch, "
+            "progressivex_tpu_torch.cli; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'progressivex_tpu')]; print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

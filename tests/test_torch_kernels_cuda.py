@@ -9,8 +9,13 @@ JAX package, so that they also run where JAX is not installed:
 Elsewhere they skip. Tolerances: inlier counts exact; scores, dots and
 norms rtol 1e-3 and atol 1e-2 (the kernel sums in a fixed order of lanes,
 warps and cluster ranks, the plain version in torch's reduction order).
-Two launches on the same inputs must agree bit for bit.
+Two launches on the same inputs must agree bit for bit, and so must a row
+scored alone and inside a batch of rows, and one row against the saved
+outputs of the one-problem kernel that preceded the row axis
+(tests/data/score_golden.npz, written by tools/score_golden.py).
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -214,16 +219,128 @@ def test_every_tiling_matches_plain(cuda, family, b, n):
                              True, 4)
     failed = []
     for tiling in TILINGS:
-        outs = [torch.full((b,), float("nan"), device=cuda) for _ in range(3)]
-        inliers = torch.full((b,), -1, dtype=torch.int32, device=cuda)
-        err = kernel(data.data_ptr(), compound.data_ptr(), pmask.data_ptr(),
-                     descs.data_ptr(), b, n, TRUNC_SQ, EXPONENT, 1, 4, *tiling,
-                     outs[0].data_ptr(), inliers.data_ptr(), outs[1].data_ptr(),
-                     outs[2].data_ptr(), torch.cuda.current_stream().cuda_stream)
-        torch.cuda.synchronize()
-        assert err == 0, f"{tiling}: CUDA error {err}"
+        got = _c_launch(kernel, data[None], descs[None], compound[None], pmask[None],
+                        torch.full((1,), TRUNC_SQ, device=cuda),
+                        torch.ones(1, dtype=torch.bool, device=cuda), 4, tiling)
         try:
-            _check((outs[0], inliers, outs[1], outs[2]), want)
+            _check([g[0] for g in got], want)
         except AssertionError as e:
             failed.append(f"{tiling}: {e}")
     assert not failed, "\n".join(failed)
+
+
+def _c_launch(kernel, data, descs, compound, pmask, trunc_sq, has, m, tiling,
+              exponent=EXPONENT):
+    """The C entry point over rows: data [R, N, 4], descs [R, B, 9],
+    compound and pmask [R, N], trunc_sq and has [R], at `tiling`. Returns
+    the four [R, B] outputs, NaN (or -1) where the kernel wrote nothing."""
+    r, n = data.shape[:2]
+    b = descs.shape[1]
+    dev = data.device
+    outs = [torch.full((r, b), float("nan"), device=dev) for _ in range(3)]
+    inliers = torch.full((r, b), -1, dtype=torch.int32, device=dev)
+    has = has.to(torch.bool).contiguous()
+    trunc_sq = trunc_sq.to(torch.float32).contiguous()
+    err = kernel(data.data_ptr(), compound.data_ptr(), pmask.data_ptr(),
+                 descs.data_ptr(), r, b, n, trunc_sq.data_ptr(), has.data_ptr(),
+                 exponent, m, *tiling, outs[0].data_ptr(), inliers.data_ptr(),
+                 outs[1].data_ptr(), outs[2].data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0, f"{tiling}: CUDA error {err}"
+    return outs[0], inliers, outs[1], outs[2]
+
+
+def _rows_case(dev, family, rows, b, n, seed=0):
+    """`rows` problems of `family` at [b, n] (each `_shape_case` with its
+    own seed), stacked on a row axis, with a threshold a row and the
+    compound penalty on in every other row."""
+    cases = [_shape_case(dev, family, b, n, seed=seed + r) for r in range(rows)]
+    stacked = [torch.stack(t).contiguous() for t in zip(*cases)]
+    trunc_sq = torch.tensor([TRUNC_SQ * (1.0 + 0.25 * (r % 3)) for r in range(rows)],
+                            device=dev)
+    has = torch.arange(rows, device=dev) % 2 == 0
+    return stacked, trunc_sq, has
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+@pytest.mark.parametrize("rows", [1, 2, 16])
+@pytest.mark.parametrize("b", [1, 4, 5, 256, 600, 1536, 2049])
+@pytest.mark.parametrize("n", [128, 300, 384, 2304, 7680])
+def test_rows_match_plain(cuda, family, rows, b, n):
+    """The row-batched kernel (one launch over all rows, per-row
+    thresholds, the compound penalty on in some rows and off in others)
+    against the plain version over the same rows."""
+    (data, descs, compound, pmask), trunc_sq, has = _rows_case(cuda, family, rows, b, n)
+    cuda_fn, plain_fn = _score(family)
+    name = f"score_{family}"
+    before = kscoring.LAUNCHES[name]
+    got = cuda_fn(data, descs, compound, pmask, trunc_sq, EXPONENT, has, 4)
+    torch.cuda.synchronize()
+    assert kscoring.LAUNCHES[name] == before + 1
+    assert got[0].shape == (rows, b)
+    for r in range(rows):  # one row at a time: the plain [R, B, N] field is large
+        want = plain_fn(data[r], descs[r], compound[r], pmask[r], trunc_sq[r],
+                        EXPONENT, has[r], 4)
+        _check([g[r] for g in got], want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+@pytest.mark.parametrize("b, n", [(256, 2304), (4, 2304), (256, 384), (1536, 256),
+                                  (4, 256), (5, 2001), (600, 7680), (3, 100)])
+def test_row_alone_equals_row_in_batch(cuda, family, b, n):
+    """A row's four outputs, bit for bit, scored alone and as row 5 of 16
+    rows, at every K the wrapper can pick for it (K follows R B), with the
+    cluster size and thread count `_tiling` picks from the row's own
+    (B, N)."""
+    (data, descs, compound, pmask), trunc_sq, has = _rows_case(cuda, family, 16, b, n)
+    kernel = kscoring._kernel(f"score_{family}")
+    n_sms = kscoring._sm_count(cuda)
+    _, cluster, threads = kscoring._tiling(b, n, n_sms)
+    for rows in (1, 16):
+        assert kscoring._tiling(b, n, n_sms, rows)[1:] == (cluster, threads)
+    sl = slice(5, 6)
+    alone = _c_launch(kernel, data[sl], descs[sl], compound[sl], pmask[sl],
+                      trunc_sq[sl], has[sl], 4, kscoring._tiling(b, n, n_sms))
+    for k in (1, 2, 4):
+        batch = _c_launch(kernel, data, descs, compound, pmask, trunc_sq, has, 4,
+                          (k, cluster, threads))
+        for g, w in zip(batch, alone):
+            assert torch.equal(g[5], w[0]), f"K={k}"
+
+
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                      "score_golden.npz")
+
+
+@pytest.mark.cuda
+def test_one_row_matches_the_kernel_before_rows(cuda):
+    """R = 1 through the row entry point against the saved outputs of the
+    one-problem kernel that preceded the row axis, on the same inputs and
+    the same tilings: every case of tools/score_golden.py, bit for bit."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "score_golden", os.path.join(os.path.dirname(GOLDEN), "..", "..", "tools",
+                                     "score_golden.py"))
+    golden = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(golden)
+    saved = np.load(GOLDEN)
+    for c, (family, b, n, _) in enumerate(golden.CASES):
+        t = [torch.as_tensor(saved[f"{c}/{k}"], device=cuda)[None]
+             for k in ("data", "descs", "compound", "mask")]
+        kernel = kscoring._kernel(f"score_{family}")
+        for m in (0, 4):
+            for has in (False, True):
+                got = _c_launch(
+                    kernel, *t, torch.full((1,), golden.TRUNC_SQ[family], device=cuda),
+                    torch.full((1,), has, device=cuda), m,
+                    kscoring._tiling(b, n, kscoring._sm_count(cuda)),
+                    exponent=golden.EXPONENT[family])
+                for name, g in zip(("scores", "inliers", "dots", "norms"), got):
+                    want = saved[f"{c}/m{m}/has{int(has)}/{name}"]
+                    np.testing.assert_array_equal(
+                        g[0].cpu().numpy(), want,
+                        err_msg=f"case {c} {family} [{b}, {n}] m={m} has={has} {name}")

@@ -72,12 +72,15 @@ def main():
                                                exponent, True, 4)
             outs = [torch.empty(b, device=dev) for _ in range(3)]
             inl = torch.empty(b, dtype=torch.int32, device=dev)
+            tau = torch.full((1,), trunc_sq, device=dev)
+            has = torch.ones(1, dtype=torch.bool, device=dev)
             chosen = ks._tiling(b, n_pad, n_sms)
             shape_rows = []
             for tiling in TILINGS:
                 def launch(tiling=tiling):
                     err = kernel(data.data_ptr(), compound.data_ptr(), pmask.data_ptr(),
-                                 d.data_ptr(), b, n_pad, trunc_sq, exponent, 1, 4,
+                                 d.data_ptr(), 1, b, n_pad, tau.data_ptr(),
+                                 has.data_ptr(), exponent, 4,
                                  *tiling, outs[0].data_ptr(), inl.data_ptr(),
                                  outs[1].data_ptr(), outs[2].data_ptr(),
                                  torch.cuda.current_stream().cuda_stream)
