@@ -9,24 +9,30 @@ Phases, each of which raises on failure:
   2. holds each kernel (score_homography, score_fundamental) against its
      plain torch version on the card at its path's shapes, and times both
      beside the launch floor (one one-element kernel, timed the same way);
-  3. drives the two ported paths on their bundled scenes, each with the
-     launch counts set to 0 just before it and read just after:
-     findHomographies under the AdelaideRMF-H protocol and
-     findTwoViewMotions under the AdelaideRMF-F protocol; checks each
-     scene's misclassification against the JAX package's and that the
-     path's kernel ran;
-  4. fits one scene of each path on the card and on the CPU and compares
-     them;
+  3. drives the ported paths, each with the launch counts set to 0 just
+     before it and read just after: findHomographies under the
+     AdelaideRMF-H protocol and findTwoViewMotions under the AdelaideRMF-F
+     protocol on their bundled scenes (the path's kernel must have run),
+     findLines on the synthetic 3180-point lines scene, findVanishingPoints
+     on the synthetic 216-segment VP scene, and find6DPoses on the bundled
+     T-LESS scene at seeds 0, 1 and 2 (these three reach no kernel in the
+     JAX package and launch none here); checks each scene's
+     misclassification against the JAX package's, and T-LESS's mean pose
+     errors against tests/test_pose6d.py's anchors;
+  4. fits one scene of the H, F, line and VP paths on the card and on the
+     CPU and compares them;
   5. drives the batched front ends (findHomographiesBatched,
-     findTwoViewMotionsBatched) on the same scenes, the launch counts set
-     to 0 just before each and read after: each scene's misclassification
-     against the JAX package's, and each scene alone against the same
-     scene inside the batch; then the throughput bench (`cli.bench_main`)
-     at a small lane target.
+     findTwoViewMotionsBatched on the same scenes, findLinesBatched and
+     findVanishingPointsBatched on four synthetic scenes each,
+     find6DPosesBatched on [tless, tless]), the launch counts set to 0
+     just before each and read after: each scene against its limit, and
+     each scene alone against the same scene listed first in a batch;
+     then the throughput bench (`cli.bench_main`) at a small lane target.
 Phase 2 also holds each kernel against its plain version over rows, at
 the shapes the batched front ends give it.
-It ends with the total seconds, a {"kernels": [...]} line, the nvidia-smi
-line and, last, {"ok": true, "device": {...}}. It needs a CUDA device and the package
+Each phase prints its seconds. It ends with the total seconds, a
+{"kernels": [...]} line, the nvidia-smi line and, last,
+{"ok": true, "device": {...}}. It needs a CUDA device and the package
 beside it, and exits non-zero without either. It imports no JAX.
 """
 
@@ -60,6 +66,45 @@ JAX_CPU_ME_F = {
     "breadcube": 0.0123967,
     "cubetoy": 0.0281124,
 }
+# The JAX package's misclassification errors on the CPU, random_seed 0,
+# on make_lines_scene(seed=s) and make_vp_scene(seed=s), s = 0..3, from
+#   JAX_PLATFORMS=cpu PROGX_COMPILE_CACHE=0 python -c "import jax;
+#     jax.config.update('jax_platforms', 'cpu');
+#     from progressivex_tpu import findLines, findVanishingPoints;
+#     from progressivex_tpu.eval.extras import make_lines_scene, make_vp_scene;
+#     from progressivex_tpu.io.metrics import misclassification as me;
+#     kw = dict(threshold=2.0, conf=0.9, minimum_point_number=30,
+#               sampler_id=0, maximum_model_number=12);
+#     kv = dict(threshold=1.5, conf=0.5, spatial_coherence_weight=0.0,
+#               neighborhood_ball_radius=200.0, maximum_tanimoto_similarity=0.4,
+#               max_iters=1000, minimum_point_number=15, maximum_model_number=5,
+#               sampler_id=0, scoring_exponent=2);
+#     L = [make_lines_scene(seed=s) for s in range(4)];
+#     V = [make_vp_scene(seed=s) for s in range(4)];
+#     print([me(findLines(p, **kw)[1], g) for p, g in L]);
+#     print([me(findVanishingPoints(v[0], **kv)[1], v[1]) for v in V])"
+JAX_CPU_ME_LINES = [0.11949685534591192, 0.11761006289308173, 0.2345911949685534,
+                    0.12735849056603776]
+# A line scene's ME is one draw of a spread that the seed decides, in
+# both packages (`python3 tools/seed_spread.py --package jax|torch` prints
+# it over random_seed 0..9). The batched front end draws each scene with
+# another seed than the single-scene one, so a batched line scene is held
+# to the worst of the JAX package's ten runs + ME_SLACK, from the command
+# above with
+#     print([max(me(findLines(p, **kw, random_seed=r)[1], g)
+#                for r in range(10)) for p, g in L])
+JAX_CPU_ME_LINES_WORST = [0.12012578616352199, 0.3141509433962264, 0.23867924528301887,
+                          0.12893081761006286]
+JAX_CPU_ME_VP = [0.03240740740740744, 0.03703703703703709, 0.04629629629629628,
+                 0.02777777777777779]
+# find6DPoses on T-LESS: the 3-seed mean of pose_errors at or under
+# tests/test_pose6d.py:85-89's anchors, (rotation deg, translation mm) for
+# each ground-truth pose; every seed at least 2 instances. One scene of
+# find6DPosesBatched (one restart, no duplicate fusion) against
+# tests/test_batch_api.py:178-182's gates.
+TLESS_SEEDS = (0, 1, 2)
+TLESS_MEAN_GATES = ((8.25, 16.0), (2.5, 12.2))
+TLESS_BATCHED_GATES = ((9.9, 28.8), (2.0, 14.64))
 ME_SLACK = 0.03
 LABEL_DISAGREEMENT_MAX = 0.01
 
@@ -586,6 +631,268 @@ def phase_bench():
     return out
 
 
+def _new_path(problem):
+    """(entry point, batched entry point, keywords) of a new path, at the
+    JAX package's keywords (eval/extras: bench_lines', bench_vps',
+    tests/test_pose6d.py's)."""
+    from progressivex_tpu_torch.eval import extras
+
+    return {"L": ("findLines", "findLinesBatched", extras.LINES_KW),
+            "V": ("findVanishingPoints", "findVanishingPointsBatched", extras.VP_KW),
+            "P": ("find6DPoses", "find6DPosesBatched", extras.TLESS_KW)}[problem]
+
+
+def _zero_launches():
+    from progressivex_tpu_torch.kernels.scoring import LAUNCHES
+
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _no_launches(label):
+    """The launch counts after a path that reaches no kernel, which must
+    all be 0."""
+    from progressivex_tpu_torch.kernels.scoring import LAUNCHES
+
+    launches = dict(LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"{label}: a scoring kernel ran on a path that has "
+                             f"none: {launches}")
+    return launches
+
+
+def _new_scene(name):
+    """A scene of the new paths by name: "lines-s" and "vp-s" are
+    make_lines_scene(seed=s) and make_vp_scene(seed=s), "tless" the bundled
+    T-LESS scene. Returns (inputs of the entry point, ground truth, limit):
+    the ground-truth labels and the JAX package's CPU ME, or for T-LESS
+    the ground-truth poses and K."""
+    from progressivex_tpu_torch.eval.extras import make_lines_scene, make_vp_scene
+    from progressivex_tpu_torch.io.data import load_tless_scene
+
+    kind, _, seed = name.partition("-")
+    if kind == "lines":
+        pts, gt = make_lines_scene(seed=int(seed))
+        return (pts,), gt, JAX_CPU_ME_LINES[int(seed)]
+    if kind == "vp":
+        segs, gt, _ = make_vp_scene(seed=int(seed))
+        return (segs,), gt, JAX_CPU_ME_VP[int(seed)]
+    xy, xyz, K, poses = load_tless_scene()
+    return (xy, xyz), poses, K
+
+
+def _n_models(problem, models):
+    return models.shape[0] // 3 if problem == "P" else models.shape[0]
+
+
+def _check_outputs(problem, name, models, labels, n_points):
+    width = {"L": 3, "V": 3, "P": 4}[problem]
+    if not (models.ndim == 2 and models.shape[1] == width and labels.shape == (n_points,)
+            and np.isfinite(models).all()):
+        raise AssertionError(f"{name}: outputs {models.shape}, {labels.shape}")
+
+
+def _tless_errors(models, poses):
+    from progressivex_tpu_torch.io.metrics import pose_errors
+
+    k = models.shape[0] // 3
+    return pose_errors([models[3 * i:3 * i + 3] for i in range(k)], poses)
+
+
+def phase_new_path(torch, problem):
+    """findLines or findVanishingPoints on its seed-0 scene, after one
+    untimed warm-up fit of it, the launch counts set to 0 just before the
+    timed fit and read after (the path reaches no kernel): ME against the
+    JAX package's CPU ME + ME_SLACK."""
+    import progressivex_tpu_torch
+    from progressivex_tpu_torch.io.metrics import misclassification
+
+    entry, _, kw = _new_path(problem)
+    fn = getattr(progressivex_tpu_torch, entry)
+    name = {"L": "lines-0", "V": "vp-0"}[problem]
+    (data,), gt, jax_me = _new_scene(name)
+    fn(data, **kw, random_seed=0)  # warm-up
+    torch.cuda.synchronize()
+    _zero_launches()
+    t0 = time.perf_counter()
+    models, labels, stats = fn(data, **kw, random_seed=0, with_statistics=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = {"problem": problem, "entry": entry, "scene": name, "points": len(gt),
+           "me": float(misclassification(labels, gt)), "jax_cpu_me": jax_me,
+           "wall_s": wall, "n_models": _n_models(problem, models),
+           "rounds": stats.rounds_run, "launches": _no_launches(name)}
+    print("main path", json.dumps(res), flush=True)
+    _check_outputs(problem, name, models, labels, len(gt))
+    if res["me"] > jax_me + ME_SLACK:
+        raise AssertionError(f"{name}: ME {res['me']} above the JAX package's "
+                             f"{jax_me} + {ME_SLACK}")
+    return dict(res, labels=labels)
+
+
+def phase_tless(torch):
+    """find6DPoses on T-LESS at TLESS_SEEDS, the launch counts set to 0
+    just before each seed and read after (the path reaches no kernel):
+    every seed at least 2 instances, the mean pose errors at or under
+    TLESS_MEAN_GATES. The first seed's wall time holds the card's first
+    SVD and solve calls."""
+    import progressivex_tpu_torch
+
+    (xy, xyz), poses, K = _new_scene("tless")
+    kw = _new_path("P")[2]
+    per_seed, failures = [], []
+    for seed in TLESS_SEEDS:
+        _zero_launches()
+        t0 = time.perf_counter()
+        models, labels, stats = progressivex_tpu_torch.find6DPoses(
+            xy, xyz, K, **kw, random_seed=seed, with_statistics=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _check_outputs("P", "tless", models, labels, len(xy))
+        errs = _tless_errors(models, poses)
+        res = {"problem": "P", "entry": "find6DPoses", "scene": "tless", "seed": seed,
+               "points": len(xy), "wall_s": wall, "n_models": models.shape[0] // 3,
+               "pose_errors": errs, "restart": stats.restart,
+               "restart_energies": stats.restart_energies,
+               "launches": _no_launches("tless")}
+        print("main path", json.dumps(res), flush=True)
+        if res["n_models"] < 2:
+            failures.append(f"tless seed {seed}: {res['n_models']} instances")
+        per_seed.append(errs)
+    mean = np.array(per_seed).mean(0)  # [pose, (rot, tr)]
+    print("tless mean pose errors", json.dumps(
+        {"seeds": list(TLESS_SEEDS), "mean": mean.tolist(), "gates": TLESS_MEAN_GATES}),
+        flush=True)
+    for gi, ((rot, tr), (rg, tg)) in enumerate(zip(mean, TLESS_MEAN_GATES)):
+        if not (rot <= rg and tr <= tg):
+            failures.append(f"tless pose {gi}: mean errors {rot:.3f} deg, {tr:.3f} mm "
+                            f"above {rg} deg, {tg} mm")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return mean
+
+
+def phase_card_vs_cpu_new(result, problem):
+    """The seed-0 scene of the line or VP path on the CPU, against the
+    card's fit of phase 3."""
+    import progressivex_tpu_torch
+    from progressivex_tpu_torch.io.metrics import misclassification
+
+    entry, _, kw = _new_path(problem)
+    (data,), gt, _ = _new_scene(result["scene"])
+    models, labels = getattr(progressivex_tpu_torch, entry)(data, **kw, random_seed=0,
+                                                            device="cpu")
+    disagreement = float(np.mean(labels != result["labels"]))
+    res = {"problem": problem, "scene": result["scene"],
+           "n_models_cuda": result["n_models"], "n_models_cpu": _n_models(problem, models),
+           "label_disagreement": disagreement, "me_cuda": result["me"],
+           "me_cpu": float(misclassification(labels, gt))}
+    print("card vs cpu", json.dumps(res), flush=True)
+    if res["n_models_cpu"] != res["n_models_cuda"]:
+        raise AssertionError(f"n_models differ: card {res['n_models_cuda']}, "
+                             f"CPU {res['n_models_cpu']}")
+    if disagreement > LABEL_DISAGREEMENT_MAX:
+        raise AssertionError(f"labels disagree on {disagreement:.4f} of points")
+
+
+def _batched_new(problem, names, memo):
+    """The batched front end of `problem` on the scenes `names`, random
+    seed 0, once for each distinct list (memo). Returns the list of
+    (models, labels)."""
+    import progressivex_tpu_torch
+
+    key = (problem, tuple(names))
+    if key not in memo:
+        _, entry, kw = _new_path(problem)
+        inputs = [_new_scene(n)[0] for n in names]
+        fn = getattr(progressivex_tpu_torch, entry)
+        if problem == "P":
+            K = _new_scene("tless")[2]
+            memo[key] = fn([i[0] for i in inputs], [i[1] for i in inputs], K, **kw,
+                           random_seed=0)
+        else:
+            memo[key] = fn([i[0] for i in inputs], **kw, random_seed=0)
+    return memo[key]
+
+
+def phase_batched_new(torch, problem, names):
+    """The batched front end of `problem` on `names`, the launch counts
+    set to 0 just before the batch and read after (the path reaches no
+    kernel): each scene against its limit (lines and VPs: the JAX
+    package's CPU ME + ME_SLACK; T-LESS: at least 2 instances within
+    TLESS_BATCHED_GATES); then each scene alone against the same scene
+    listed first in a batch (phase 5's rule): the same number of models,
+    labels apart on at most LABEL_DISAGREEMENT_MAX, instances matched one
+    to one."""
+    from progressivex_tpu_torch.io.metrics import misclassification
+
+    memo = {}
+    _zero_launches()
+    t0 = time.perf_counter()
+    batch = _batched_new(problem, names, memo)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = {"problem": problem, "entry": _new_path(problem)[1], "scenes": list(names),
+           "wall_s": wall, "launches": _no_launches(f"batched {problem}"), "per_scene": []}
+    failures = []
+    for i, name in enumerate(names):
+        inputs, truth, limit = _new_scene(name)
+        models, labels = batch[i]
+        _check_outputs(problem, name, models, labels, len(inputs[0]))
+        k = _n_models(problem, models)
+        row = {"scene": name, "n_models": k}
+        if problem == "P":
+            row["pose_errors"] = errs = _tless_errors(models, truth)
+            if k < 2 or any(not (r <= rg and t <= tg) for (r, t), (rg, tg)
+                            in zip(errs, TLESS_BATCHED_GATES)):
+                failures.append(f"batched {name}: {k} instances, errors {errs} against "
+                                f"{TLESS_BATCHED_GATES}")
+        else:
+            if problem == "L":
+                limit = JAX_CPU_ME_LINES_WORST[int(name.partition("-")[2])]
+            row["me"] = me = float(misclassification(labels, truth))
+            row["jax_cpu_me"] = limit
+            if me > limit + ME_SLACK:
+                failures.append(f"batched {name}: ME {me} above the JAX package's "
+                                f"{limit} + {ME_SLACK}")
+        first = _batched_new(problem, list(names[i:]) + list(names[:i]), memo)[0]
+        alone = _batched_new(problem, [name], memo)[0]
+        k_first = _n_models(problem, first[0])
+        same_k = _n_models(problem, alone[0]) == k_first
+        row["n_models_first"] = k_first
+        row["n_models_alone"] = _n_models(problem, alone[0])
+        row["alone_label_disagreement"] = disagreement = (
+            _label_disagreement(alone[1], first[1], k_first) if same_k else 1.0)
+        if not same_k:
+            failures.append(f"batched {name}: {k_first} models listed first, "
+                            f"{row['n_models_alone']} alone")
+        elif disagreement > LABEL_DISAGREEMENT_MAX:
+            failures.append(f"batched {name}: alone and listed first, labels "
+                            f"disagree on {disagreement:.4f} of points")
+        res["per_scene"].append(row)
+    print("batched path", json.dumps(res), flush=True)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return res
+
+
+FAILURES = []
+
+
+def _timed(label, fn, *args):
+    """fn(*args), printing its seconds. A phase that raises is recorded in
+    FAILURES and the next phase runs; the script fails at its end."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    except Exception as e:  # noqa: BLE001 - reported, and the run fails
+        FAILURES.append(f"phase {label}: {type(e).__name__}: {e}")
+        print(f"phase {label} FAILED: {e}", file=sys.stderr, flush=True)
+        return None
+    finally:
+        print(f"phase {label} seconds {time.perf_counter() - t0:.3f}", flush=True)
+
+
 def _kernel_line(name, cases, worst_abs, results, main_shape, pallas_lines,
                  row_cases, batched):
     main_case = next(c for c in cases if c["shape"] == main_shape
@@ -633,13 +940,24 @@ def main():
         print(f"nvcc {name}:\n{log.strip()}", flush=True)
     dev = torch.device("cuda")
 
-    kernel_cases, row_cases = phase_kernel(torch, dev)
-    results = {p: phase_main_path(torch, p) for p in ("H", "F")}
-    phase_card_vs_cpu(results["H"], "H", "oldclassicswing")
-    phase_card_vs_cpu(results["F"], "F", "book")
-    batched = {p: phase_batched(torch, p) for p in ("H", "F")}
-    bench = phase_bench()
+    kernel_phase = _timed("2 kernels", phase_kernel, torch, dev)
+    results = {p: _timed(f"3 {p}", phase_main_path, torch, p) for p in ("H", "F")}
+    new = {p: _timed(f"3 {p}", phase_new_path, torch, p) for p in ("L", "V")}
+    _timed("3 P", phase_tless, torch)
+    _timed("4 H", phase_card_vs_cpu, results["H"], "H", "oldclassicswing")
+    _timed("4 F", phase_card_vs_cpu, results["F"], "F", "book")
+    for p in ("L", "V"):
+        _timed(f"4 {p}", phase_card_vs_cpu_new, new[p], p)
+    batched = {p: _timed(f"5 {p}", phase_batched, torch, p) for p in ("H", "F")}
+    _timed("5 L", phase_batched_new, torch, "L", [f"lines-{s}" for s in range(4)])
+    _timed("5 V", phase_batched_new, torch, "V", [f"vp-{s}" for s in range(4)])
+    _timed("5 P", phase_batched_new, torch, "P", ["tless", "tless"])
+    bench = _timed("5 bench", phase_bench)
+    print(f"total seconds {time.perf_counter() - t_start:.3f}", flush=True)
+    if FAILURES:
+        _fail("; ".join(FAILURES))
 
+    kernel_cases, row_cases = kernel_phase
     kernels = [
         _kernel_line("score_homography", *kernel_cases["score_homography"],
                      results["H"], [256, 2304],
@@ -651,7 +969,6 @@ def main():
                      row_cases["score_fundamental"], batched["F"]),
     ]
     print("bench", json.dumps(bench), flush=True)
-    print(f"total seconds {time.perf_counter() - t_start:.3f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

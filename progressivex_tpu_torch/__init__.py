@@ -13,10 +13,12 @@ Pallas kernel of the JAX package, is a hand-written CUDA kernel per family
 `csrc/score_fundamental.cu`) on the card and its plain torch version on
 the CPU.
 
-Ported so far: the multi-homography path (`findHomographies`) and the
-two-view-motion path (`findTwoViewMotions`), each also batched over many
-scenes (`findHomographiesBatched`, `findTwoViewMotionsBatched`) on the
-engine's row axis.
+Ported so far: the multi-homography path (`findHomographies`), the
+two-view-motion path (`findTwoViewMotions`), 2D lines (`findLines`),
+vanishing points (`findVanishingPoints`) and 6D poses (`find6DPoses`),
+each also batched over many scenes (`find*Batched`) on the engine's row
+axis. The families other than H and F reach no kernel in the JAX package
+and are scored by plain torch on every device.
 """
 
 import torch as _torch
@@ -34,11 +36,17 @@ _torch.set_float32_matmul_precision("highest")
 
 from progressivex_tpu_torch.api import (  # noqa: E402,F401
     Statistics,
+    find6DPoses,
     findHomographies,
+    findLines,
     findTwoViewMotions,
+    findVanishingPoints,
 )
 from progressivex_tpu_torch.api_batch import (  # noqa: E402,F401
+    find6DPosesBatched,
     findHomographiesBatched,
+    findLinesBatched,
     findTwoViewMotionsBatched,
+    findVanishingPointsBatched,
 )
 from progressivex_tpu_torch.models import get_family  # noqa: E402,F401

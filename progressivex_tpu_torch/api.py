@@ -1,9 +1,11 @@
 """pyprogressivex-compatible entry points — counterpart of progressivex_tpu/api.py
-(its homography and fundamental-matrix entries; the other families come
-with their slices).
+(the essential-matrix extension comes with its slice).
 
   findHomographies(corrs, w1, h1, w2, h2, ...)   -> ([3K, 3], labeling)
   findTwoViewMotions(corrs, w1, h1, w2, h2, ...) -> ([3K, 3], labeling)
+  findLines(points, weights, w, h, ...)          -> ([K, 3], labeling)
+  findVanishingPoints(lines, weights, w, h, ...) -> ([K, 3], labeling)
+  find6DPoses(x1y1, x2y2z2, K, ...)              -> ([3K, 4], labeling)
 
 labeling[i] in {0..K-1} names the instance, K means outlier. Keywords and
 defaults are the JAX package's, plus `device`: the fit runs on the CUDA
@@ -35,7 +37,8 @@ _UNLIMITED = 10**9
 PAD_LEVELS = (128, 256, 384, 512, 768, 1024, 1536, 2304, 3456, 5120, 7680)
 # Per-family proposal sub-batch caps (the JAX package's measured values,
 # progressivex_tpu/api.py:106-126).
-_MAX_HYP_BY_FAMILY = {"homography": 256, "fundamental": 512}
+_MAX_HYP_BY_FAMILY = {"homography": 256, "line2d": 512,
+                      "vanishing_point": 512, "fundamental": 512}
 # Sub-batches per round: PROGX_MAX_SUBBATCHES, default 1, the JAX package's
 # measured default (progressivex_tpu/api.py:29-32, :160-161).
 _MAX_SUBBATCHES = int(os.environ.get("PROGX_MAX_SUBBATCHES", "1"))
@@ -83,8 +86,9 @@ def _run(family_name, data, weights, *, threshold, conf,
          spatial_coherence_weight, neighborhood_ball_radius,
          maximum_tanimoto_similarity, max_iters, minimum_point_number,
          maximum_model_number, sampler_id, scoring_exponent, do_logging=False,
-         random_seed=0, with_statistics=False, lo_spatial_lambda=0.5,
-         n_restarts=1, final_relabel=0, magsac_levels=0, split_pass=0,
+         random_seed=0, graph_data=None, with_statistics=False,
+         lo_spatial_lambda=0.5, n_restarts=1, final_polish=0, final_relabel=0,
+         magsac_levels=0, split_pass=0, polish_trim=0.0, polish_research=0,
          restart_rule="energy", max_rounds=10, pearl_iters=3,
          max_subbatches=None, device=None):
     dev = resolve_device(device)
@@ -99,6 +103,10 @@ def _run(family_name, data, weights, *, threshold, conf,
     if weights is not None and np.size(weights) > 0:
         w[:n] = np.asarray(weights, np.float32).reshape(-1)[:n]
     w[n:] = 0.0
+    graph_p = None
+    if graph_data is not None:
+        graph_p = np.pad(np.ascontiguousarray(graph_data, np.float32),
+                         ((0, n_pad - n), (0, 0)))
 
     family = get_family(family_name)
     n_hyp = _hyp_budget(max_iters, family.max_solutions, family_name)
@@ -109,9 +117,12 @@ def _run(family_name, data, weights, *, threshold, conf,
         sampler_id=int(sampler_id),
         lo_spatial_lambda=lo_spatial_lambda,
         n_restarts=int(n_restarts),
+        final_polish=int(final_polish),
         final_relabel=int(final_relabel),
         magsac_levels=int(magsac_levels),
         split_pass=int(split_pass),
+        polish_trim=float(polish_trim),
+        polish_research=int(polish_research),
         restart_rule=str(restart_rule),
         max_rounds=int(max_rounds),
         pearl_iters=int(pearl_iters),
@@ -130,7 +141,8 @@ def _run(family_name, data, weights, *, threshold, conf,
     gen = torch.Generator().manual_seed(int(random_seed))
     result = engine.fit(family, cfg, params, torch.from_numpy(data_p).to(dev),
                         torch.from_numpy(mask).to(dev), torch.from_numpy(w).to(dev),
-                        generator=gen)
+                        generator=gen,
+                        graph_data=None if graph_p is None else torch.from_numpy(graph_p).to(dev))
     descs, labels = engine.compact_result(result, n)
     processing_time = time.perf_counter() - t0
     if do_logging:
@@ -269,3 +281,262 @@ def findTwoViewMotions(
     )
     out = descs.reshape(-1, 3).astype(np.float64)
     return (out, labels, stats) if with_statistics else (out, labels)
+
+
+def findLines(
+    points,
+    weights=None,
+    w=0,
+    h=0,
+    threshold=2.0,
+    conf=0.5,
+    spatial_coherence_weight=0.0,
+    neighborhood_ball_radius=200.0,
+    maximum_tanimoto_similarity=0.4,
+    max_iters=1000,
+    minimum_point_number=10,
+    maximum_model_number=-1,
+    sampler_id=3,
+    scoring_exponent=2,
+    do_logging=False,
+    random_seed=0,
+    with_statistics=False,
+    n_restarts=1,
+    device=None,
+):
+    """Multi 2D-line fitting. points: [N, 2], weights: [N] per point or
+    None. Returns ([K, 3] lines (a, b, c) with a^2 + b^2 = 1, labeling).
+    Samplers 2 and 3 both run NAPSAC, anything else uniform, as in the
+    JAX package."""
+    points = np.asarray(points, np.float64)
+    if points.ndim != 2 or points.shape[1] != 2 or points.shape[0] < 2:
+        raise ValueError("points should be an array with dims [n,2], n>=2")
+    descs, labels, stats = _run(
+        "line2d", points, weights,
+        threshold=threshold, conf=conf,
+        spatial_coherence_weight=spatial_coherence_weight,
+        neighborhood_ball_radius=neighborhood_ball_radius,
+        maximum_tanimoto_similarity=maximum_tanimoto_similarity,
+        max_iters=max_iters, minimum_point_number=minimum_point_number,
+        maximum_model_number=maximum_model_number,
+        sampler_id=line_sampler(sampler_id),
+        scoring_exponent=scoring_exponent, do_logging=do_logging,
+        random_seed=random_seed, with_statistics=with_statistics,
+        n_restarts=n_restarts, device=device,
+    )
+    out = descs.astype(np.float64)
+    return (out, labels, stats) if with_statistics else (out, labels)
+
+
+def findVanishingPoints(
+    lines,
+    weights=None,
+    w=0,
+    h=0,
+    threshold=4.0,
+    conf=0.5,
+    spatial_coherence_weight=0.0,
+    neighborhood_ball_radius=200.0,
+    maximum_tanimoto_similarity=0.4,
+    max_iters=1000,
+    minimum_point_number=10,
+    maximum_model_number=-1,
+    sampler_id=3,
+    scoring_exponent=2,
+    do_logging=False,
+    random_seed=0,
+    with_statistics=False,
+    n_restarts=1,
+    device=None,
+):
+    """Multi vanishing-point fitting. lines: [N, 4] segments [xs, ys, xe,
+    ye], weights: [N] per segment or None. Returns ([K, 3] unit homogeneous
+    VPs, labeling). Samplers 0 and 1 run as asked, anything else uniform,
+    as in the JAX package."""
+    lines = np.asarray(lines, np.float64)
+    if lines.ndim != 2 or lines.shape[1] != 4 or lines.shape[0] < 2:
+        raise ValueError("lines should be an array with dims [n,4], n>=2")
+    descs, labels, stats = _run(
+        "vanishing_point", lines, weights,
+        threshold=threshold, conf=conf,
+        spatial_coherence_weight=spatial_coherence_weight,
+        neighborhood_ball_radius=neighborhood_ball_radius,
+        maximum_tanimoto_similarity=maximum_tanimoto_similarity,
+        max_iters=max_iters, minimum_point_number=minimum_point_number,
+        maximum_model_number=maximum_model_number,
+        sampler_id=vp_sampler(sampler_id),
+        scoring_exponent=scoring_exponent, do_logging=do_logging,
+        random_seed=random_seed, with_statistics=with_statistics,
+        n_restarts=n_restarts, device=device,
+    )
+    out = descs.astype(np.float64)
+    return (out, labels, stats) if with_statistics else (out, labels)
+
+
+def line_sampler(sampler_id) -> int:
+    """The line front ends' sampler remap (progressivex_tpu/api.py:353)."""
+    return {0: 0, 1: 1, 2: 3, 3: 3}.get(int(sampler_id), 0)
+
+
+def vp_sampler(sampler_id) -> int:
+    """The VP front ends' sampler remap (progressivex_tpu/api.py:396)."""
+    return int(sampler_id) if int(sampler_id) in (0, 1) else 0
+
+
+def pose_inputs(x1y1, x2y2z2, K, threshold):
+    """The 6D-pose front ends' preprocessing
+    (progressivex_python.cpp:64-105): image points normalized by K^-1,
+    the threshold divided by the mean focal length, and the neighborhood
+    graph on the unnormalized rows [x, y, X, Y, Z]. Returns (data [N, 5],
+    graph rows [N, 5], normalized points [N, 2], normalized threshold)."""
+    ones = np.ones((x1y1.shape[0], 1))
+    norm_xy = (np.concatenate([x1y1, ones], axis=1) @ np.linalg.inv(K).T)[:, :2]
+    data = np.concatenate([norm_xy, x2y2z2], axis=1)
+    graph = np.concatenate([x1y1, x2y2z2], axis=1)
+    return data, graph, norm_xy, threshold / (0.5 * (K[0, 0] + K[1, 1]))
+
+
+def check_pose_inputs(x1y1, x2y2z2, K, every=""):
+    """x1y1, x2y2z2 and K as float64 arrays, validated as the JAX front
+    ends validate them."""
+    x1y1 = np.asarray(x1y1, np.float64)
+    x2y2z2 = np.asarray(x2y2z2, np.float64)
+    K = np.asarray(K, np.float64)
+    if x1y1.ndim != 2 or x1y1.shape[1] != 2 or x1y1.shape[0] < 3:
+        raise ValueError(f"{every}x1y1 should be an array with dims [n,2], n>=3")
+    if x2y2z2.shape != (x1y1.shape[0], 3):
+        raise ValueError(f"{every}x2y2z2 should be an array with dims [n,3], n>=3")
+    if K.shape != (3, 3):
+        raise ValueError(f"{every}K should be an array with dims [3,3]")
+    return x1y1, x2y2z2, K
+
+
+def find6DPoses(
+    x1y1,
+    x2y2z2,
+    K,
+    threshold=4.0,
+    conf=0.90,
+    spatial_coherence_weight=0.1,
+    neighborhood_ball_radius=20.0,
+    maximum_tanimoto_similarity=0.9,
+    max_iters=400,
+    minimum_point_number=6,
+    maximum_model_number=-1,
+    do_logging=False,
+    random_seed=0,
+    with_statistics=False,
+    n_restarts=3,
+    polish_trim=0.0,
+    final_polish=3,
+    polish_research=0,
+    fuse_duplicates=True,
+    device=None,
+):
+    """Multi 6D-pose fitting from 2D-3D correspondences. x1y1: [N, 2]
+    pixel coordinates, x2y2z2: [N, 3] world points, K: [3, 3]. Returns
+    ([3K_models, 4] stacked row-major [R | t], labeling). The extension
+    keywords and their defaults (three energy-selected restarts as rows,
+    three final polish passes, duplicate fusion) are the JAX package's
+    (see progressivex_tpu/api.find6DPoses for the measurements behind
+    them); the samples are uniform and the local optimization is not
+    spatially weighted, as there."""
+    x1y1, x2y2z2, K = check_pose_inputs(x1y1, x2y2z2, K)
+    data, graph, norm_xy, thr = pose_inputs(x1y1, x2y2z2, K, threshold)
+    descs, labels, stats = _run(
+        "pnp", data, None,
+        threshold=thr, conf=conf,
+        spatial_coherence_weight=spatial_coherence_weight,
+        neighborhood_ball_radius=neighborhood_ball_radius,
+        maximum_tanimoto_similarity=maximum_tanimoto_similarity,
+        max_iters=max_iters, minimum_point_number=minimum_point_number,
+        maximum_model_number=maximum_model_number, sampler_id=0,
+        scoring_exponent=2, do_logging=do_logging, random_seed=random_seed,
+        graph_data=graph, with_statistics=with_statistics,
+        n_restarts=n_restarts, lo_spatial_lambda=0.0,
+        final_polish=final_polish, polish_trim=polish_trim,
+        polish_research=polish_research, device=device,
+    )
+    if fuse_duplicates:
+        descs, labels = _fuse_pose_duplicates(descs, labels, norm_xy, x2y2z2, thr)
+    out = descs.reshape(-1, 4).astype(np.float64)
+    return (out, labels, stats) if with_statistics else (out, labels)
+
+
+def _fuse_pose_duplicates(descs, labels, norm_xy, xyz, thr_norm,
+                          rel_radius=0.025, max_rot_deg=30.0):
+    """Fuse duplicate pose instances: a copy of the JAX package's host
+    numpy function (progressivex_tpu/api.py:762-847, where the
+    measurements behind it are). Instances whose poses agree within
+    rel_radius of the median camera distance in translation and within
+    max_rot_deg in rotation, gated against each group's running
+    support-weighted mean and taken largest support first, fuse into one:
+    the support-weighted chordal mean rotation and the translation of the
+    member with the highest density of points within half the threshold.
+    descs [K, 12], labels [N] with outlier = K. Returns (descs [K', 12],
+    labels renumbered, outlier = K')."""
+    K = descs.shape[0]
+    if K <= 1:
+        return descs, labels
+    labels = np.asarray(labels)
+    P = np.asarray(descs, np.float64).reshape(K, 3, 4)
+    Rs, ts = P[:, :, :3], P[:, :, 3]
+    radius = rel_radius * np.median(np.linalg.norm(ts, axis=1))
+    cos_gate = np.cos(np.deg2rad(max_rot_deg))
+    tight = 0.5 * thr_norm
+
+    def tight_density(i):
+        part = labels == i
+        if not part.any():
+            return 0.0
+        Xc = xyz[part] @ Rs[i].T + ts[i]
+        z = np.maximum(Xc[:, 2], 1e-9)
+        r = np.linalg.norm(Xc[:, :2] / z[:, None] - norm_xy[part], axis=1)
+        return float(np.mean(r < tight))
+
+    sizes = np.array([(labels == i).sum() for i in range(K)], np.float64)
+
+    def _chordal_mean(members):
+        w = sizes[members]
+        w = w / max(w.sum(), 1.0)
+        M = np.einsum("m,mij->ij", w, Rs[members])
+        U, _, Vt = np.linalg.svd(M)
+        return U @ np.diag([1.0, 1.0, np.linalg.det(U @ Vt)]) @ Vt
+
+    order = sorted(range(K), key=lambda i: -sizes[i])
+    group_members: list[list[int]] = []
+    for i in order:
+        joined = False
+        for members in group_members:
+            Rm = _chordal_mean(members)
+            w = sizes[members]
+            tm = (w[:, None] * ts[members]).sum(0) / max(w.sum(), 1.0)
+            if np.linalg.norm(ts[i] - tm) >= radius:
+                continue
+            cos_ang = 0.5 * (np.trace(Rm.T @ Rs[i]) - 1.0)
+            if cos_ang < cos_gate:
+                continue
+            members.append(i)
+            joined = True
+            break
+        if not joined:
+            group_members.append([i])
+
+    # The output keeps the instances' order: a group is keyed by its
+    # smallest original index.
+    groups = {min(m): sorted(m) for m in group_members}
+    reps = sorted(groups)
+    new_descs = []
+    remap = np.full(K + 1, len(reps), np.int32)  # outlier K -> new K'
+    for new_i, rep in enumerate(reps):
+        members = groups[rep]
+        if len(members) == 1:
+            Pf = P[rep]
+        else:
+            Rf = _chordal_mean(members)
+            tf = ts[max(members, key=tight_density)]
+            Pf = np.concatenate([Rf, tf[:, None]], axis=1)
+        new_descs.append(Pf.reshape(12))
+        for m in members:
+            remap[m] = new_i
+    return np.stack(new_descs), remap[np.asarray(labels, np.int64)]

@@ -1,15 +1,20 @@
 """Batched multi-scene front ends — counterpart of progressivex_tpu/api_batch.py
-(its homography and fundamental-matrix entries; the other families come
-with their slices).
+(the essential-matrix extension comes with its slice).
 
-  findHomographiesBatched(corrs_list, ...)   -> [([3K_i, 3], labeling_i), ...]
-  findTwoViewMotionsBatched(corrs_list, ...) -> [([3K_i, 3], labeling_i), ...]
+  findHomographiesBatched(corrs_list, ...)    -> [([3K_i, 3], labeling_i), ...]
+  findTwoViewMotionsBatched(corrs_list, ...)  -> [([3K_i, 3], labeling_i), ...]
+  findLinesBatched(points_list, ...)          -> [([K_i, 3], labeling_i), ...]
+  findVanishingPointsBatched(lines_list, ...) -> [([K_i, 3], labeling_i), ...]
+  find6DPosesBatched(x1y1_list, x2y2z2_list, K_list, ...)
+                                              -> [([3K_i, 4], labeling_i), ...]
 
 The layout is the JAX package's: scenes are grouped by pad level
 (api.PAD_LEVELS); each group is one `engine.fit_rows` call on the card,
 every scene a lane of its row axis; lane counts pad up to the next power
 of two by cyclic replication; restarts are flattened into rows (restart r
-of lane j is row r * lanes + j); `n_valid` and `threshold` ride per row;
+of lane j is row r * lanes + j); `n_valid`, `threshold` (for 6D poses a
+scene's own focal length scales it) and the graph coordinates ride per
+row;
 and the winning restart of each lane is chosen on the host
 (`engine.select_restart`). Outputs match the single-scene front ends
 element for element.
@@ -78,6 +83,7 @@ def _run_batched(
     maximum_model_number,
     sampler_id,
     scoring_exponent,
+    graph_datas=None,  # list of [n_i, d'] or None
     random_seed=0,
     n_restarts=1,
     restart_rule="energy",
@@ -143,6 +149,8 @@ def _run_batched(
         wts = np.zeros((lanes, n_pad), np.float32)
         nv = np.zeros((lanes,), np.int64)
         th = np.zeros((lanes,), np.float32)
+        gd = (None if graph_datas is None else
+              np.zeros((lanes, n_pad, graph_datas[idxs[0]].shape[1]), np.float32))
         for j, i in enumerate(lane_ids):
             n = datas[i].shape[0]
             data[j, :n] = datas[i]
@@ -151,6 +159,8 @@ def _run_batched(
                           else np.asarray(weights_list[i], np.float32).reshape(-1)[:n])
             nv[j] = n
             th[j] = th_vec[i]
+            if gd is not None:
+                gd[j, :n] = graph_datas[i]
 
         def tile(a):
             return torch.from_numpy(np.concatenate([a] * n_restarts)).to(dev)
@@ -160,7 +170,8 @@ def _run_batched(
         res = engine.fit_rows(
             family, cfg, params._replace(n_valid=np.tile(nv, n_restarts),
                                          threshold=np.tile(th, n_restarts)),
-            tile(data), tile(mask), tile(wts), generators=gens)
+            tile(data), tile(mask), tile(wts), generators=gens,
+            graph_data=None if gd is None else tile(gd))
         energy = res.energy.cpu().numpy().reshape(n_restarts, lanes)
         nmod = res.n_models.cpu().numpy().reshape(n_restarts, lanes)
         for j, i in enumerate(lane_ids[:len(idxs)]):
@@ -176,12 +187,12 @@ def _run_batched(
     return results
 
 
-def _as_scenes(corrs_list, min_points):
+def _as_scenes(corrs_list, min_points, name="corrs", dim=4):
     datas = []
     for corrs in corrs_list:
         corrs = np.asarray(corrs, np.float64)
-        if corrs.ndim != 2 or corrs.shape[1] != 4 or corrs.shape[0] < min_points:
-            raise ValueError(f"every corrs should be an array with dims [n,4], "
+        if corrs.ndim != 2 or corrs.shape[1] != dim or corrs.shape[0] < min_points:
+            raise ValueError(f"every {name} should be an array with dims [n,{dim}], "
                              f"n>={min_points}")
         datas.append(np.ascontiguousarray(corrs, np.float32))
     return datas
@@ -279,3 +290,143 @@ def findTwoViewMotionsBatched(
         mesh=mesh, n_devices=n_devices, device=device, **engine_kwargs,
     )
     return [(d.reshape(-1, 3).astype(np.float64), l) for d, l in out]
+
+
+def findLinesBatched(
+    points_list,
+    weights_list=None,
+    threshold=2.0,
+    conf=0.5,
+    spatial_coherence_weight=0.0,
+    neighborhood_ball_radius=200.0,
+    maximum_tanimoto_similarity=0.4,
+    max_iters=1000,
+    minimum_point_number=10,
+    maximum_model_number=-1,
+    sampler_id=3,
+    scoring_exponent=2,
+    do_logging=False,
+    random_seed=0,
+    n_restarts=1,
+    mesh=None,
+    n_devices=None,
+    device=None,
+    **engine_kwargs,
+):
+    """Multi 2D-line fitting over a list of point sets [n_i, 2] in one
+    batch on the card, each with its per-point weights in `weights_list`
+    (or None). Returns a list of ([K_i, 3] lines (a, b, c), labeling_i) in
+    `findLines`' format; `engine_kwargs` takes the engine extensions
+    (max_rounds, pearl_iters, split_pass, final_relabel, magsac_levels,
+    restart_rule, ...)."""
+    out = _run_batched(
+        "line2d", _as_scenes(points_list, 2, "points", 2), weights_list,
+        thresholds=threshold, conf=conf,
+        spatial_coherence_weight=spatial_coherence_weight,
+        neighborhood_ball_radius=neighborhood_ball_radius,
+        maximum_tanimoto_similarity=maximum_tanimoto_similarity,
+        max_iters=max_iters, minimum_point_number=minimum_point_number,
+        maximum_model_number=maximum_model_number,
+        sampler_id=_api.line_sampler(sampler_id),
+        scoring_exponent=scoring_exponent, do_logging=do_logging,
+        random_seed=random_seed, n_restarts=n_restarts,
+        mesh=mesh, n_devices=n_devices, device=device, **engine_kwargs,
+    )
+    return [(d.astype(np.float64), l) for d, l in out]
+
+
+def findVanishingPointsBatched(
+    lines_list,
+    weights_list=None,
+    threshold=4.0,
+    conf=0.5,
+    spatial_coherence_weight=0.0,
+    neighborhood_ball_radius=200.0,
+    maximum_tanimoto_similarity=0.4,
+    max_iters=1000,
+    minimum_point_number=10,
+    maximum_model_number=-1,
+    sampler_id=3,
+    scoring_exponent=2,
+    do_logging=False,
+    random_seed=0,
+    n_restarts=1,
+    mesh=None,
+    n_devices=None,
+    device=None,
+    **engine_kwargs,
+):
+    """Multi vanishing-point fitting over a list of segment sets [n_i, 4]
+    in one batch on the card, each with its per-segment weights in
+    `weights_list` (or None). Returns a list of ([K_i, 3] unit VPs,
+    labeling_i) in `findVanishingPoints`' format; `engine_kwargs` as
+    `findLinesBatched`'."""
+    out = _run_batched(
+        "vanishing_point", _as_scenes(lines_list, 2, "lines"), weights_list,
+        thresholds=threshold, conf=conf,
+        spatial_coherence_weight=spatial_coherence_weight,
+        neighborhood_ball_radius=neighborhood_ball_radius,
+        maximum_tanimoto_similarity=maximum_tanimoto_similarity,
+        max_iters=max_iters, minimum_point_number=minimum_point_number,
+        maximum_model_number=maximum_model_number,
+        sampler_id=_api.vp_sampler(sampler_id),
+        scoring_exponent=scoring_exponent, do_logging=do_logging,
+        random_seed=random_seed, n_restarts=n_restarts,
+        mesh=mesh, n_devices=n_devices, device=device, **engine_kwargs,
+    )
+    return [(d.astype(np.float64), l) for d, l in out]
+
+
+def find6DPosesBatched(
+    x1y1_list,
+    x2y2z2_list,
+    K_list,
+    threshold=4.0,
+    conf=0.90,
+    spatial_coherence_weight=0.1,
+    neighborhood_ball_radius=20.0,
+    maximum_tanimoto_similarity=0.9,
+    max_iters=400,
+    minimum_point_number=6,
+    maximum_model_number=-1,
+    do_logging=False,
+    random_seed=0,
+    n_restarts=1,
+    mesh=None,
+    n_devices=None,
+    device=None,
+    **engine_kwargs,
+):
+    """Multi 6D-pose fitting over a list of scenes in one batch on the
+    card. K_list is one [3, 3] a scene or a single shared [3, 3]; each
+    scene's K^-1 normalization and threshold over its mean focal length
+    ride per row, and its graph is built on its unnormalized rows, as in
+    `find6DPoses`. `engine_kwargs` takes the engine extensions, over this
+    front end's own defaults lo_spatial_lambda=0.0 and final_polish=3; no
+    duplicate fusion, as in the JAX package. Returns a list of ([3K_i, 4]
+    stacked [R | t], labeling_i)."""
+    n_scenes = len(x1y1_list)
+    Ks = list(K_list) if isinstance(K_list, (list, tuple)) else [K_list] * n_scenes
+    if len(Ks) != n_scenes or len(x2y2z2_list) != n_scenes:
+        raise ValueError("x1y1_list, x2y2z2_list, K_list length mismatch")
+    datas, graphs, ths = [], [], []
+    for x1y1, x2y2z2, K in zip(x1y1_list, x2y2z2_list, Ks):
+        data, graph, _, thr = _api.pose_inputs(
+            *_api.check_pose_inputs(x1y1, x2y2z2, K, "every "), threshold)
+        datas.append(np.ascontiguousarray(data, np.float32))
+        graphs.append(np.ascontiguousarray(graph, np.float32))
+        ths.append(thr)
+    out = _run_batched(
+        "pnp", datas, None,
+        thresholds=ths, conf=conf,
+        spatial_coherence_weight=spatial_coherence_weight,
+        neighborhood_ball_radius=neighborhood_ball_radius,
+        maximum_tanimoto_similarity=maximum_tanimoto_similarity,
+        max_iters=max_iters, minimum_point_number=minimum_point_number,
+        maximum_model_number=maximum_model_number, sampler_id=0,
+        scoring_exponent=2, graph_datas=graphs, do_logging=do_logging,
+        random_seed=random_seed, n_restarts=n_restarts,
+        mesh=mesh, n_devices=n_devices, device=device,
+        **{"lo_spatial_lambda": 0.0, "final_polish": 3, **engine_kwargs},
+    )
+    return [(d.reshape(-1, 4).astype(np.float64), l) for d, l in out]

@@ -20,6 +20,13 @@ round, and "does any row go on" in the sub-batch, LO, PEARL and ICM loops.
 rows, and `select_restart` picks the winner on the host, as the JAX
 package vmaps restarts.
 
+After the rounds come the final moves, in the JAX package's order
+(progressivex_tpu/core/engine.py:967-1010): split, merge (row by row),
+`_final_polish`, `_polish_research` (both on the row axis), then the final
+relabel. A fit may build its principal-axis sort and kNN graph on other
+coordinates than the model's (`graph_data`: the 6D-pose front ends' pixel
+and world rows).
+
 Samples are drawn for all rounds before the loop, on CPU generators, one
 a row, so that the card and the CPU see the same samples for the same
 seeds; a row's generator draws all of that row's rounds, then its
@@ -306,9 +313,6 @@ def _round(family, cfg, params, data, pmask, pweights, idx, samp_ok,
 
 def _check_slice(cfg: EngineConfig):
     later = {
-        "final_polish": cfg.final_polish != 0,
-        "polish_research": cfg.polish_research != 0,
-        "polish_trim": cfg.polish_trim != 0.0,
         "live_progress": cfg.live_progress,
         "neighborhood": cfg.neighborhood != "knn",
         "hyp_axis": cfg.hyp_axis is not None,
@@ -322,9 +326,10 @@ def _check_slice(cfg: EngineConfig):
 def spatial_order(data, point_mask):
     """Principal-axis sort of a banded fit, so that kNN neighbors fall in
     a +-potts_band index window (ops/labeling.BandedAdj); padding sorts
-    last. data [(R,) N, d], point_mask [(R,) N]. Returns (perm, rank),
-    [(R,) N] each: sorted position -> caller's point, and caller's point
-    -> sorted position."""
+    last. data [(R,) N, d] are the graph coordinates (the fit's data
+    unless the caller gives others), point_mask [(R,) N]. Returns (perm,
+    rank), [(R,) N] each: sorted position -> caller's point, and caller's
+    point -> sorted position."""
     m = point_mask.to(data.dtype)
     mu = row_sum(data * m[..., None], -2) / torch.clamp(m.sum(-1), min=1.0)[..., None]
     xc = (data - mu[..., None, :]) * m[..., None]
@@ -341,11 +346,15 @@ def spatial_order(data, point_mask):
 
 
 def fit_rows(family: ModelFamily, cfg: EngineConfig, params: RuntimeParams, data,
-             point_mask, point_weights, generators=None, presampled=None) -> FitResult:
+             point_mask, point_weights, generators=None, presampled=None,
+             graph_data=None) -> FitResult:
     """R independent fits on the device of `data`: data [R, N, d], point
     mask and weights [R, N], `params.threshold` and `params.n_valid`
-    shared or one a row ([R]). `cfg.n_restarts` is not read: restarts are
-    rows. Samples come from `generators`, R CPU torch.Generators (one
+    shared or one a row ([R]). `graph_data` [R, N, d'], if given, are the
+    coordinates of the principal-axis sort and the kNN graph in place of
+    `data` (the 6D-pose front ends build the graph on pixels and world
+    points, progressivex_tpu/core/engine.py:516-551). `cfg.n_restarts` is
+    not read: restarts are rows. Samples come from `generators`, R CPU torch.Generators (one
     object may serve several rows: each row draws all of its rounds, then
     its extension sub-batches, in row order), or from `presampled =
     (idx_all [R, rounds, B, m], ok_all [R, rounds, B], idx_ext
@@ -361,13 +370,18 @@ def fit_rows(family: ModelFamily, cfg: EngineConfig, params: RuntimeParams, data
         else params.n_valid), (n_rows,))
     params = rows_params(params, n_rows, dev)
     use_band = cfg.potts_band > 0 and n > 128 + 2 * cfg.potts_band
+    gd = data if graph_data is None else graph_data
     rank = None
     if use_band:
-        perm, rank = spatial_order(data, point_mask)
-        data = data.gather(1, perm[..., None].expand(-1, -1, data.shape[2]))
+        perm, rank = spatial_order(gd, point_mask)
+
+        def sort(t):
+            return t.gather(1, perm[..., None].expand(-1, -1, t.shape[2]))
+
+        data, gd = sort(data), sort(gd)
         point_mask, point_weights = point_mask.gather(1, perm), point_weights.gather(1, perm)
 
-    samp_idx, samp_mask = knn_graph(data, point_mask, params.neighborhood_radius,
+    samp_idx, samp_mask = knn_graph(gd, point_mask, params.neighborhood_radius,
                                     max(cfg.knn_k, cfg.sampler_k))
     knn_idx, knn_mask = samp_idx[..., :cfg.knn_k], samp_mask[..., :cfg.knn_k]
     if use_band:
@@ -448,6 +462,13 @@ def _fit_prepared(family, cfg, params, data, point_mask, point_weights, adj,
                 row = merge_instances(*args, *row, adj_row(adj, r))
             moved.append(row)
         descs, active, labels = (torch.stack(t) for t in zip(*moved))
+    if cfg.final_polish > 0:
+        descs = _final_polish(family, cfg, params, data, point_mask, point_weights,
+                              descs, active, labels)
+    if cfg.polish_research > 0:
+        # The last descriptor pass (see the JAX package's config.py).
+        descs = _polish_research(family, cfg, params, data, point_mask,
+                                 point_weights, descs, active, labels)
     trunc_sq = truncated_sq_threshold(params.threshold)
     r2_f = family.squared_residual(data, descs)
     if cfg.final_relabel > 0:
@@ -486,9 +507,10 @@ def row_result(rows: FitResult, r: int) -> FitResult:
 
 def fit(family: ModelFamily, cfg: EngineConfig, params: RuntimeParams, data,
         point_mask, point_weights, generator: torch.Generator | None = None,
-        presampled=None) -> FitResult:
+        presampled=None, graph_data=None) -> FitResult:
     """The full multi-model fit of one padded scene (data [N, d], point
-    mask and weights [N]), on the device of `data`: its `cfg.n_restarts`
+    mask and weights [N], graph coordinates `graph_data` [N, d'] if not
+    those of `data`), on the device of `data`: its `cfg.n_restarts`
     restarts run as the rows of one `fit_rows` call, and `select_restart`
     picks the winner. Samples come from `generator` (a CPU
     torch.Generator): restart 0 draws all of its rounds first, then
@@ -514,7 +536,8 @@ def fit(family: ModelFamily, cfg: EngineConfig, params: RuntimeParams, data,
 
     res = fit_rows(family, dataclasses.replace(cfg, n_restarts=1), params,
                    rows(data), rows(point_mask), rows(point_weights),
-                   generators=[generator] * n_restarts, presampled=presampled)
+                   generators=[generator] * n_restarts, presampled=presampled,
+                   graph_data=None if graph_data is None else rows(graph_data))
     energies = res.energy.tolist()  # one read for every restart
     best = select_restart(energies, cfg.restart_rule, res.n_models.tolist())
     return row_result(res, best)._replace(restart=best,
@@ -565,6 +588,116 @@ def _draw(generators, cfg, family, n_valid, samp_idx, samp_mask, n_sub):
     runs = [(*batches(r, cfg.max_rounds), *batches(r, n_sub - 1))
             for r in range(len(generators))]
     return tuple(torch.stack([run[i] for run in runs]) for i in range(4))
+
+
+def _final_polish(family, cfg, params, data, pmask, pweights, descs, active, labels):
+    """cfg.final_polish IRLS refit passes on the final instances of every
+    row (progressivex_tpu/core/engine.py:670-724): each pass refits every
+    instance on its labeled points with truncated-preference weights and
+    keeps the refit where its truncated residual sum over those points
+    drops (PEARL's acceptance rule). With cfg.polish_trim > 0 a pass first
+    keeps only the members below the instance's (1 - trim) residual
+    quantile, never fewer than the family's non-minimal size, and both
+    the weights and the sums see only those. data [R, N, d], descs
+    [R, K, D], active [R, K], labels [R, N] -> descs [R, K, D]."""
+    trunc_sq = truncated_sq_threshold(params.threshold)  # [R]
+    tau = per_row(trunc_sq, 3)
+    cap = 2.25 * tau
+    slot_ids = torch.arange(cfg.max_models, device=data.device)
+    member = (labels[:, None, :] == slot_ids[:, None]) & pmask[:, None, :]  # [R, K, N]
+    fit_w = member.to(data.dtype) * pweights[:, None, :]
+    nk = member.sum(-1)
+
+    def keep_mask(r2m):
+        if cfg.polish_trim <= 0.0:
+            return member
+        srt = torch.sort(torch.where(member, r2m, torch.inf), dim=-1).values
+        floor_n = max(int(family.nonminimal_min), 4)
+        keep_n = torch.maximum(torch.ceil((1.0 - cfg.polish_trim) * nk).long(),
+                               torch.clamp(nk, max=floor_n))
+        idx = torch.clamp(keep_n - 1, 0, r2m.shape[-1] - 1)
+        return member & (r2m <= srt.gather(-1, idx[..., None]))
+
+    def trunc_sum(r2m, kmask):
+        return row_sum(kmask * torch.sqrt(torch.minimum(r2m, cap)))
+
+    for _ in range(cfg.final_polish):
+        r2 = family.squared_residual(data, descs)
+        kmask = keep_mask(r2)
+        pref = torch.clamp(1.0 - r2 / tau, min=0.0)
+        new_descs, ok = family.refit(data, fit_w * pref * kmask, descs)
+        r2_new = family.squared_residual(data, new_descs)
+        accept = ok & active & (trunc_sum(r2_new, kmask) < trunc_sum(r2, kmask))
+        descs = torch.where(accept[..., None], new_descs, descs)
+    return descs
+
+
+def _polish_research(family, cfg, params, data, pmask, pweights, descs, active, labels):
+    """Tight-threshold local minimal re-search on the final instances of
+    every row (cfg.polish_research; progressivex_tpu/core/engine.py:727-821,
+    where the reasons are): cfg.polish_research minimal samples from each
+    instance's labeled points, placed by a fixed hash permutation of the
+    point positions; the candidate with the most points within half the
+    threshold over all valid points, three warm-started refits at that
+    tight scale (a step kept if the tight count does not drop); the
+    instance takes the candidate if it keeps at least half of its tight
+    core and beats its tight count by 25%. data [R, N, d], descs
+    [R, K, D], active [R, K], labels [R, N] -> descs [R, K, D]."""
+    n_samples, m = cfg.polish_research, family.sample_size
+    rows, n = data.shape[:2]
+    k_slots, dim = cfg.max_models, family.desc_dim
+    dev = data.device
+    ar = torch.arange(rows, device=dev)
+    tight = params.threshold * 0.5
+    t2 = tight * tight  # [R]
+    t2_k = t2[:, None, None]  # against [R, K, N]
+
+    # Knuth multiplicative hashes of the positions, one odd multiplier a
+    # sample: the JAX package's uint32 products, wrapped mod 2^32 here in
+    # int64; each row of keys is a permutation, argsorted stably.
+    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    mult = torch.arange(n_samples, dtype=torch.int64, device=dev) * 2 + 2654435761
+    keys = ((pos[None, :] + 1) * mult[:, None]) & 0xFFFFFFFF
+    s_pos = torch.argsort(keys, dim=1, stable=True)[:, :m]  # [S, m]
+
+    part = (labels[:, None, :] == torch.arange(k_slots, device=dev)[:, None]) \
+        & pmask[:, None, :]  # [R, K, N]
+    npart = part.sum(-1)
+    order = torch.argsort(torch.where(part, 0, 1), dim=-1, stable=True)
+    s_ix = s_pos % torch.clamp(npart, min=1)[..., None, None]  # [R, K, S, m]
+    pick = order.gather(-1, s_ix.reshape(rows, k_slots, -1))
+    samples = data[ar[:, None, None], pick].reshape(-1, m, data.shape[-1])
+    dh, vh = family.minimal_solver_batched(samples)
+    flat = dh.reshape(rows, k_slots, -1, dim)
+    vf = vh.reshape(rows, k_slots, -1)
+
+    def tight_count(r2v):
+        """Valid points within the tight threshold, r2v [R, ..., N] -> [R, ...]."""
+        lead = [1] * (r2v.ndim - 2)
+        return ((r2v < t2.reshape(rows, *lead, 1)) & pmask.reshape(rows, *lead, n)).sum(-1)
+
+    sup = tight_count(family.squared_residual(data, flat))  # [R, K, H]
+    sup = torch.where(vf & torch.isfinite(flat).all(-1), sup, -1)
+    best = sup.argmax(-1)
+    cand = flat.gather(2, best[..., None, None].expand(-1, -1, 1, dim))[:, :, 0]
+    cand_ok = sup.gather(-1, best[..., None])[..., 0] > 0
+    wts = (pmask.to(data.dtype) * pweights)[:, None, :]
+
+    def tight_global(d):
+        return tight_count(family.squared_residual(data, d))
+
+    for _ in range(3):
+        pref = torch.clamp(1.0 - family.squared_residual(data, cand) / (2.25 * t2_k),
+                           min=0.0)
+        c2, ok2 = family.refit(data, pref * wts, cand)
+        better = ok2 & torch.isfinite(c2).all(-1) & (tight_global(c2) >= tight_global(cand))
+        cand = torch.where(better[..., None], c2, cand)
+    core = (family.squared_residual(data, descs) < t2_k) & part
+    anchored = ((core & (family.squared_residual(data, cand) < t2_k)).sum(-1).to(data.dtype)
+                >= 0.5 * core.sum(-1).to(data.dtype))
+    take = (active & cand_ok & anchored
+            & (tight_global(cand).to(data.dtype) > 1.25 * tight_global(descs).to(data.dtype)))
+    return torch.where(take[..., None], cand, descs)
 
 
 def _total_energy(family, params, data, pmask, adj, descs, active, labels):

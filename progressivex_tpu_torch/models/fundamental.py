@@ -23,8 +23,8 @@ import torch
 from progressivex_tpu_torch.kernels.scoring import score_fundamental
 from progressivex_tpu_torch.models.base import (ModelFamily, point_columns,
                                                 register_family, row_view)
-from progressivex_tpu_torch.ops.linalg import (cubic_roots_real, gram, hartley_normalize,
-                                               nullspace_exact, row_sum,
+from progressivex_tpu_torch.ops.linalg import (cubic_roots_real, det3, gram,
+                                               hartley_normalize, nullspace_exact, row_sum,
                                                smallest_eigvec_psd)
 
 _EPS = 1e-12
@@ -45,13 +45,6 @@ def _denormalize(Fn, T1, T2):
     F = T2.transpose(-1, -2) @ Fn @ T1
     nrm = torch.linalg.vector_norm(F, dim=(-2, -1))
     return F / torch.clamp(nrm, min=_EPS)[..., None, None]
-
-
-def _det3(M):
-    """Closed-form determinant of [..., 3, 3] -> [...]."""
-    return (M[..., 0, 0] * (M[..., 1, 1] * M[..., 2, 2] - M[..., 1, 2] * M[..., 2, 1])
-            - M[..., 0, 1] * (M[..., 1, 0] * M[..., 2, 2] - M[..., 1, 2] * M[..., 2, 0])
-            + M[..., 0, 2] * (M[..., 1, 0] * M[..., 2, 1] - M[..., 1, 1] * M[..., 2, 0]))
 
 
 def _minimal_batched(samples):
@@ -82,10 +75,10 @@ def _minimal_batched(samples):
     F2 = basis[:, 1].reshape(-1, 3, 3)
 
     # det(l F1 + (1 - l) F2) is cubic in l: coefficients from 4 evaluations.
-    d0 = _det3(F2)
-    d1 = _det3(F1)
-    dm1 = _det3(2.0 * F2 - F1)
-    d2 = _det3(2.0 * F1 - F2)
+    d0 = det3(F2)
+    d1 = det3(F1)
+    dm1 = det3(2.0 * F2 - F1)
+    d2 = det3(2.0 * F1 - F2)
     c2_ = 0.5 * (d1 + dm1) - d0
     a1 = d1 - d0 - c2_
     a2 = d2 - d0 - 4.0 * c2_

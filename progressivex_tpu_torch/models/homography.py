@@ -20,7 +20,7 @@ import torch
 from progressivex_tpu_torch.kernels.scoring import score_homography
 from progressivex_tpu_torch.models.base import (ModelFamily, point_columns,
                                                 register_family, row_view)
-from progressivex_tpu_torch.ops.linalg import (gram, nullspace_exact, row_sum,
+from progressivex_tpu_torch.ops.linalg import (det3, gram, nullspace_exact, row_sum,
                                                smallest_eigvec_psd)
 
 _EPS = 1e-12
@@ -47,12 +47,6 @@ def _normalize_scale(H):
     denom = torch.where(scale.abs() > 1e-8 * big, scale,
                         torch.where(big > _EPS, big, torch.ones_like(big)))
     return H / denom[..., None, None]
-
-
-def _det3(H):
-    return (H[..., 0, 0] * (H[..., 1, 1] * H[..., 2, 2] - H[..., 1, 2] * H[..., 2, 1])
-            - H[..., 0, 1] * (H[..., 1, 0] * H[..., 2, 2] - H[..., 1, 2] * H[..., 2, 0])
-            + H[..., 0, 2] * (H[..., 1, 0] * H[..., 2, 1] - H[..., 1, 1] * H[..., 2, 0]))
 
 
 _TRIPLES = ((0, 1, 2), (0, 1, 3), (0, 2, 3), (1, 2, 3))
@@ -110,7 +104,7 @@ def _minimal_batched(samples):
     ], dim=1)
     H = _normalize_scale(H)
     valid = (ns_valid & torch.isfinite(H).all(-1).all(-1)
-             & (_det3(H).abs() > 1e-10) & _sample_orientation_ok(p1, p2))
+             & (det3(H).abs() > 1e-10) & _sample_orientation_ok(p1, p2))
     return H.reshape(-1, 1, 9), valid[:, None]
 
 
@@ -158,7 +152,7 @@ def _nonminimal(data, weights):
     ], -2)
     H = _normalize_scale(row_view(T2inv, data, weights, 2) @ Hn
                          @ row_view(T1, data, weights, 2))
-    valid = (torch.isfinite(H).all(-1).all(-1) & (_det3(H).abs() > 1e-10)
+    valid = (torch.isfinite(H).all(-1).all(-1) & (det3(H).abs() > 1e-10)
              & ((weights > 0).sum(-1) >= 4))
     return H.reshape(*weights.shape[:-1], 9), valid
 

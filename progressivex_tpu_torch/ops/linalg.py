@@ -1,12 +1,13 @@
 """Closed-form linear algebra of the solvers — counterpart of the subset
-of progressivex_tpu/ops/linalg.py that the homography and fundamental
-families import.
+of progressivex_tpu/ops/linalg.py that the homography, fundamental, line,
+vanishing-point and PnP families import.
 
 The algorithms are the JAX package's, step for step: unrolled
 Gauss-Jordan elimination with the same partial-pivot rule, null spaces by
 fixing the free columns, shifted inverse iteration (6 steps) for the
-smallest eigenvector, and the trigonometric/Cardano cubic with its
-quadratic and linear fallbacks. `torch.linalg.svd`/`eigh` would return
+smallest eigenvector, the closed-form symmetric 2x2 eigenvector, the
+trigonometric/Cardano cubic with its quadratic and linear fallbacks, and
+Ferrari's quartic with two Newton steps. `torch.linalg.svd`/`eigh` would return
 other signs and bases. The JAX package keeps a separate lanes-major form
 (`gauss_jordan_solve_lanes`, `nullspace_exact_lanes`) with the batch axis
 last for the TPU's vector lanes; here one batch-first form serves both:
@@ -54,6 +55,42 @@ def gram(a, b, weights=None):
     if weights is not None:
         at = at * weights[..., None, :]
     return row_sum(at[..., :, None, :] * bt[..., None, :, :])
+
+
+def normalize_vec(v, dim: int = -1):
+    """v over its norm along `dim` (norms below 1e-12 clamped)."""
+    n = torch.linalg.vector_norm(v, dim=dim, keepdim=True)
+    return v / torch.clamp(n, min=_EPS)
+
+
+def det3(M):
+    """Closed-form determinant of M [..., 3, 3] -> [...]."""
+    return (M[..., 0, 0] * (M[..., 1, 1] * M[..., 2, 2] - M[..., 1, 2] * M[..., 2, 1])
+            - M[..., 0, 1] * (M[..., 1, 0] * M[..., 2, 2] - M[..., 1, 2] * M[..., 2, 0])
+            + M[..., 0, 2] * (M[..., 1, 0] * M[..., 2, 1] - M[..., 1, 1] * M[..., 2, 0]))
+
+
+def matmul_small(A, B):
+    """A [..., p, q] @ B [..., q, r] for tiny q, as elementwise products
+    summed over q, so that a row's bits do not depend on the batch."""
+    return (A[..., :, :, None] * B[..., None, :, :]).sum(-2)
+
+
+def smallest_eigvec_2x2(M):
+    """Closed-form eigenvector of the smallest eigenvalue of symmetric
+    M [..., 2, 2]: orthogonal to the larger row of M - lambda I; an
+    isotropic M (both rows vanish) gives the x axis."""
+    a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 1, 1]
+    det_gap = torch.sqrt(torch.clamp((a - c) ** 2 + 4.0 * b * b, min=0.0))
+    lam = 0.5 * ((a + c) - det_gap)
+    r0 = torch.stack([a - lam, b], -1)
+    r1 = torch.stack([b, c - lam], -1)
+    use0 = (r0 * r0).sum(-1) > (r1 * r1).sum(-1)
+    row = torch.where(use0[..., None], r0, r1)
+    v = torch.stack([-row[..., 1], row[..., 0]], -1)
+    nrm = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+    x_axis = torch.tensor([1.0, 0.0], dtype=M.dtype, device=M.device)
+    return torch.where(nrm > _EPS, v / torch.clamp(nrm, min=_EPS), x_axis)
 
 
 def hartley_normalize(pts, weights):
@@ -138,6 +175,60 @@ def cubic_roots_real(a, b, c, d):
     return roots, valid
 
 
+def polish_poly_roots(coeffs, roots, iters: int = 2):
+    """Newton steps on the roots [..., k] of the polynomials whose
+    coefficients, highest power first, are coeffs [..., deg + 1]; a step is
+    clipped to +-1e6 and skipped where the derivative vanishes."""
+    x = roots
+    for _ in range(iters):
+        val = torch.zeros_like(x)
+        der = torch.zeros_like(x)
+        for i in range(coeffs.shape[-1]):
+            der = der * x + val
+            val = val * x + coeffs[..., i, None]
+        step = val / torch.where(der.abs() > _EPS, der, 1.0)
+        x = x - torch.clamp(step, -1e6, 1e6)
+    return x
+
+
+def quartic_roots_real(coeffs):
+    """Real roots of the monic x^4 + a x^3 + b x^2 + c x + d = 0 by
+    Ferrari's method, coeffs [..., 4] = (a, b, c, d), with two Newton
+    steps. Returns (roots [..., 4], valid [..., 4]); an invalid entry holds
+    the first valid root."""
+    a, b, c, d = coeffs.unbind(-1)
+    # Depressed: x = y - a/4 -> y^4 + p y^2 + q y + r.
+    a2 = a * a
+    p = b - 3.0 * a2 / 8.0
+    q = c - a * b / 2.0 + a2 * a / 8.0
+    r = d - a * c / 4.0 + a2 * b / 16.0 - 3.0 * a2 * a2 / 256.0
+    # Resolvent cubic 8 m^3 + 8 p m^2 + (2 p^2 - 8 r) m - q^2 = 0: its
+    # largest real root, at least 1e-10.
+    m_roots, m_valid = cubic_roots_real(torch.full_like(p, 8.0), 8.0 * p,
+                                        2.0 * p * p - 8.0 * r, -q * q)
+    m = torch.where(m_valid, m_roots, -torch.inf).amax(-1)
+    m = torch.clamp(m, min=1e-10)
+    sqrt2m = torch.sqrt(2.0 * m)
+    q_safe = torch.where(sqrt2m.abs() > _EPS, q / sqrt2m, 0.0)
+    # y^2 +- sqrt(2m) y + (p/2 + m -+ q / (2 sqrt(2m))) = 0
+    c1 = p / 2.0 + m - q_safe / 2.0
+    c2 = p / 2.0 + m + q_safe / 2.0
+
+    def quad(bq, cq):
+        disc = bq * bq - 4.0 * cq
+        s = torch.sqrt(torch.clamp(disc, min=0.0))
+        return (-bq - s) / 2.0, (-bq + s) / 2.0, disc >= 0.0
+
+    y0, y1, ok_a = quad(sqrt2m, c1)
+    y2, y3, ok_b = quad(-sqrt2m, c2)
+    roots = torch.stack([y0, y1, y2, y3], -1) - (a / 4.0)[..., None]
+    valid = torch.stack([ok_a, ok_a, ok_b, ok_b], -1)
+    roots = polish_poly_roots(torch.stack([torch.ones_like(a), a, b, c, d], -1), roots)
+    first = valid.to(torch.int8).argmax(-1, keepdim=True)
+    roots = torch.where(valid, roots, roots.gather(-1, first))
+    return roots, valid & valid.any(-1, keepdim=True)
+
+
 def gauss_jordan_solve(M, B):
     """Solve M X = B for tiny static n by unrolled Gauss-Jordan with
     partial pivoting. M [..., n, n], B [..., n, r] -> X [..., n, r]
@@ -201,3 +292,29 @@ def smallest_eigvec_psd(M, iters: int = 6):
         v = v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True),
                             min=_EPS)
     return v
+
+
+def kabsch(src, dst, weights):
+    """Weighted rigid alignment dst ~ R src + t for src, dst [..., N, 3]
+    and weights [..., N]. Returns (R [..., 3, 3], t [..., 3], valid [...]).
+
+    R = V diag(1, 1, sign det(V U^T)) U^T from the SVD U S V^T of the
+    weighted cross-covariance, which does not change when a pair of
+    singular vectors flips sign together. A cross-covariance that is not
+    finite (a degenerate sample) is replaced by the identity before the
+    SVD and marked invalid, since the SVD of the card raises on it."""
+    wsum = torch.clamp(row_sum(weights), min=_EPS)[..., None]
+    mu_s = row_sum(weights[..., :, None] * src, -2) / wsum
+    mu_d = row_sum(weights[..., :, None] * dst, -2) / wsum
+    H = gram(src - mu_s[..., None, :], dst - mu_d[..., None, :], weights)
+    finite = torch.isfinite(H).all(-1).all(-1)
+    eye = torch.eye(3, dtype=H.dtype, device=H.device)
+    U, _, Vh = torch.linalg.svd(torch.where(finite[..., None, None], H, eye))
+    V, Ut = Vh.transpose(-1, -2), U.transpose(-1, -2)
+    sgn = torch.sign(det3(matmul_small(V, Ut)))
+    one = torch.ones_like(sgn)
+    R = matmul_small(V * torch.stack([one, one, sgn], -1)[..., None, :], Ut)
+    t = mu_d - (R * mu_s[..., None, :]).sum(-1)
+    valid = (finite & torch.isfinite(R).all(-1).all(-1)
+             & torch.isfinite(t).all(-1))
+    return R, t, valid

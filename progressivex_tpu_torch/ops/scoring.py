@@ -4,8 +4,10 @@
   model score          = sum(preference) - (sum min(pref, compound_pref))^e
 
 (reference `scoring_function_with_compound_model.h:61-125`). This is the
-plain torch form; on the card the engine scores through the fused kernel
-of kernels/scoring.py, which computes the same function.
+plain torch form; on the card the homography and fundamental families
+score through the fused kernels of kernels/scoring.py, which compute the
+same function, and the families that reach no kernel in the JAX package
+(lines, vanishing points, PnP) through `residual_scorer`.
 
 Every function takes an optional leading row axis: sq_residuals [R, B, N]
 with compound_pref and point_mask [R, N], and `truncated_sq_threshold`
@@ -51,13 +53,18 @@ def compound_penalized_scores(
     exponent,  # scalar
     has_compound,  # bool or [R] bool: any model in the compound instance yet?
     magsac_levels: int = 0,  # 0 = MSAC ranking; > 0 = sigma-marginalized
+    fixed_order: bool = False,
 ):
     """Returns scores [.., B], inlier counts [.., B] int32, pref_dot [.., B]
     = <pref_b, compound_pref> and pref_sqnorm [.., B] = <pref_b, pref_b>.
 
     The overlap penalty and the Tanimoto moments use the hard-tau
     preference whatever the ranking; inliers count at the raw threshold
-    tau^2 = tau_t^2 / 2.25 (see the JAX module for the reasons)."""
+    tau^2 = tau_t^2 / 2.25 (see the JAX module for the reasons). With
+    `fixed_order` the sums over the points go through `row_sum`, so that a
+    row's scores are the same bits at any number of rows on the card too
+    (the scorer of the families that reach no kernel)."""
+    total = row_sum if fixed_order else (lambda x: x.sum(-1))
     pm = point_mask[..., None, :]
     tau = per_row(truncated_sq_threshold, sq_residuals.ndim)
     pref = torch.where(pm, truncated_preference(sq_residuals, tau), 0.0)
@@ -66,17 +73,31 @@ def compound_penalized_scores(
             sq_residuals, tau, magsac_levels), 0.0)
     else:
         rank_pref = pref
-    raw = rank_pref.sum(-1)
-    shared = torch.minimum(pref, compound_pref[..., None, :]).sum(-1)
+    raw = total(rank_pref)
+    shared = total(torch.minimum(pref, compound_pref[..., None, :]))
     has = per_row(torch.as_tensor(has_compound, device=raw.device), raw.ndim)
     scores = torch.where(has, raw - torch.clamp(shared, min=0.0) ** exponent, raw)
     inliers = ((sq_residuals < tau / 2.25) & pm).sum(-1)
     # An elementwise product and a sum, not a matrix-vector product: a row's
     # sum then does not depend on how many rows there are (torch's CPU
     # product takes another path for one row than for several).
-    pref_dot = (pref * compound_pref[..., None, :]).sum(-1)
-    pref_sqnorm = (pref * pref).sum(-1)
+    pref_dot = total(pref * compound_pref[..., None, :])
+    pref_sqnorm = total(pref * pref)
     return scores, inliers.to(torch.int32), pref_dot, pref_sqnorm
+
+
+def residual_scorer(squared_residual):
+    """The proposal scorer of a family that reaches no kernel in the JAX
+    package (its engine scores them with `compound_penalized_scores` in
+    XLA, progressivex_tpu/core/engine.py:189-195): the same function over
+    `squared_residual`, in plain torch on every device, with its sums in a
+    fixed order. It takes the arguments of `ModelFamily.scorer`."""
+    def scorer(data, descs, compound_pref, point_mask, trunc_sq, exponent,
+               has_compound, magsac_levels=0):
+        return compound_penalized_scores(
+            squared_residual(data, descs), compound_pref, point_mask, trunc_sq,
+            exponent, has_compound, magsac_levels, fixed_order=True)
+    return scorer
 
 
 def tanimoto_similarity(pref, compound_pref):

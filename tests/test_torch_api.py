@@ -129,7 +129,7 @@ def test_port_imports_nothing_of_jax():
     code = ("import sys, progressivex_tpu_torch, progressivex_tpu_torch.eval.adelaide, "
             "progressivex_tpu_torch.convert, progressivex_tpu_torch.kernels._build, "
             "progressivex_tpu_torch.models.fundamental, progressivex_tpu_torch.api_batch, "
-            "progressivex_tpu_torch.cli; "
+            "progressivex_tpu_torch.cli, progressivex_tpu_torch.eval.extras; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'progressivex_tpu')]; print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -10,7 +10,7 @@ api_batch) against the JAX package's, and the front ends' surface.
   alone, inside a three-scene batch and replicated to four lanes.
 - The row-batched plain scorer against `fused_scores` in interpret mode,
   vmapped over three rows with a threshold and a compound flag a row.
-- The keyword names and defaults of the four ported front ends against
+- The keyword names and defaults of the ten ported front ends against
   the JAX functions', `n_restarts` on `findHomographies`,
   `PROGX_MAX_SUBBATCHES`, and input validation.
 
@@ -226,8 +226,14 @@ def test_row_batched_plain_scorer_matches_pallas_interpret():
 FRONT_ENDS = [
     (api.findHomographies, japi.findHomographies),
     (api.findTwoViewMotions, japi.findTwoViewMotions),
+    (api.findLines, japi.findLines),
+    (api.findVanishingPoints, japi.findVanishingPoints),
+    (api.find6DPoses, japi.find6DPoses),
     (api_batch.findHomographiesBatched, japi_batch.findHomographiesBatched),
     (api_batch.findTwoViewMotionsBatched, japi_batch.findTwoViewMotionsBatched),
+    (api_batch.findLinesBatched, japi_batch.findLinesBatched),
+    (api_batch.findVanishingPointsBatched, japi_batch.findVanishingPointsBatched),
+    (api_batch.find6DPosesBatched, japi_batch.find6DPosesBatched),
 ]
 
 
@@ -273,7 +279,8 @@ def test_max_subbatches_reads_the_environment():
 
 def test_batched_input_validation():
     """tests/test_batch_api.py:186 on the port, plus what it does not
-    port: scene sharding, and unknown keywords."""
+    port: scene sharding, unknown keywords, and the engine options of
+    later slices."""
     with pytest.raises(ValueError):
         progressivex_tpu_torch.findHomographiesBatched([np.zeros((3, 4))], device="cpu")
     with pytest.raises(ValueError):
@@ -286,7 +293,7 @@ def test_batched_input_validation():
     with pytest.raises(TypeError):
         progressivex_tpu_torch.findHomographiesBatched([scene], not_a_kwarg=1, device="cpu")
     with pytest.raises(NotImplementedError, match="later slices"):
-        progressivex_tpu_torch.findHomographiesBatched([scene], final_polish=1, device="cpu")
+        engine._check_slice(engine.EngineConfig(family="homography", neighborhood="grid"))
     with pytest.raises(ValueError, match="per-row sample shapes"):
         convert.presampled_rows(np.zeros((2, 8, 4)), np.zeros((2, 8), bool),
                                 np.zeros((0, 8, 4)), np.zeros((0, 8), bool), device="cpu")

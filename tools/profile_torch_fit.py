@@ -4,13 +4,17 @@
 
 For each bundled AdelaideRMF scene of both protocols (H:
 findHomographies under H_PROTOCOL; F: findTwoViewMotions under
-F_PROTOCOL; seed 0), runs one fit without the profiler (wall seconds) and
-one under torch.profiler (CPU + CUDA activities), and reports the number
-of device operations (kernels, copies, sets), their summed device time,
-the device's busy share of the profiled wall time, the scoring kernels'
-launches, and the ten device operations that took the most time (the
-full report goes to FILE.json with --out). Needs a CUDA device; it
-imports no JAX.
+F_PROTOCOL), the synthetic lines scene (L: findLines, 3180 points), the
+synthetic VP scene (V: findVanishingPoints, 216 segments) and the bundled
+T-LESS scene (P: find6DPoses), seed 0, at the keywords of
+eval/adelaide.scene_kwargs and eval/extras, runs one fit without the
+profiler (wall seconds) and one under torch.profiler (CPU + CUDA
+activities), and reports the number of device operations (kernels,
+copies, sets), their summed device time, the device's busy share of the
+profiled wall time, the scoring kernels' launches, and the ten device
+operations that took the most time (the full report goes to FILE.json
+with --out). Each path is warmed up by one fit of its first scene. Needs
+a CUDA device; it imports no JAX.
 """
 
 import argparse
@@ -35,27 +39,39 @@ def main():
 
     if not torch.cuda.is_available():
         sys.exit("profile_torch_fit.py: no CUDA device is available")
-    from progressivex_tpu_torch import findHomographies, findTwoViewMotions
+    import progressivex_tpu_torch as px
+    from progressivex_tpu_torch.eval import extras
     from progressivex_tpu_torch.eval.adelaide import scene_kwargs
     from progressivex_tpu_torch.io.data import (ADELAIDE_F_SCENES, ADELAIDE_H_SCENES,
-                                                load_corr_scene)
+                                                load_corr_scene, load_tless_scene)
     from progressivex_tpu_torch.kernels.scoring import LAUNCHES
 
-    paths = {"H": (findHomographies, ADELAIDE_H_SCENES),
-             "F": (findTwoViewMotions, ADELAIDE_F_SCENES)}
+    def adelaide(problem, scene):
+        corrs, _ = load_corr_scene(scene)
+        return (corrs,), scene_kwargs(len(corrs), problem)
+
+    # problem: (entry point, scenes, scene -> (arguments, keywords))
+    paths = {
+        "H": (px.findHomographies, ADELAIDE_H_SCENES, lambda s: adelaide("H", s)),
+        "F": (px.findTwoViewMotions, ADELAIDE_F_SCENES, lambda s: adelaide("F", s)),
+        "L": (px.findLines, ("lines-0",),
+              lambda s: ((extras.make_lines_scene(seed=0)[0],), extras.LINES_KW)),
+        "V": (px.findVanishingPoints, ("vp-0",),
+              lambda s: ((extras.make_vp_scene(seed=0)[0],), extras.VP_KW)),
+        "P": (px.find6DPoses, ("tless",),
+              lambda s: (load_tless_scene()[:3], extras.TLESS_KW)),
+    }
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     report = {"device": smi, "torch": torch.__version__, "scenes": {}}
-    corrs, _ = load_corr_scene("oldclassicswing")
-    findHomographies(corrs, **scene_kwargs(len(corrs)), random_seed=0)  # warm-up
-    torch.cuda.synchronize()
-    for problem, (fn, scenes) in paths.items():
+    for problem, (fn, scenes, inputs) in paths.items():
+        fn(*inputs(scenes[0])[0], **inputs(scenes[0])[1], random_seed=0)  # warm-up
+        torch.cuda.synchronize()
         for scene in scenes:
-            corrs, _ = load_corr_scene(scene)
-            kw = scene_kwargs(len(corrs), problem)
+            fargs, kw = inputs(scene)
             t0 = time.perf_counter()
-            fn(corrs, **kw, random_seed=0)
+            fn(*fargs, **kw, random_seed=0)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
 
@@ -63,7 +79,7 @@ def main():
                 LAUNCHES[k] = 0
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                fn(corrs, **kw, random_seed=0)
+                fn(*fargs, **kw, random_seed=0)
                 torch.cuda.synchronize()
                 wall_prof = time.perf_counter() - t0
             # The raw kineto events: building the profiler's event tree for
@@ -78,7 +94,7 @@ def main():
                 counts[e.name()] += 1
             res = {
                 "problem": problem,
-                "points": len(corrs),
+                "points": len(fargs[0]),
                 "wall_s": wall,
                 "wall_profiled_s": wall_prof,
                 "device_ops": len(dev_events),
