@@ -21,15 +21,28 @@ Phases, each of which raises on failure:
      errors against tests/test_pose6d.py's anchors;
   4. fits one scene of the H, F, line and VP paths on the card and on the
      CPU and compares them;
+     Then findEssentialMatrices on the essential gauntlet's scenes
+     (tests/test_gauntlet.py: two motions at seeds 0-2, three motions at
+     seed 1, three restarts), scored by the fundamental kernel, against
+     the gauntlet's gates, beside the JAX package's CPU ME;
+  4. fits one scene of the H, F, line, VP and essential paths on the card
+     and on the CPU and compares them;
   5. drives the batched front ends (findHomographiesBatched,
      findTwoViewMotionsBatched on the same scenes, findLinesBatched and
      findVanishingPointsBatched on four synthetic scenes each,
-     find6DPosesBatched on [tless, tless]), the launch counts set to 0
-     just before each and read after: each scene against its limit, and
-     each scene alone against the same scene listed first in a batch;
-     then the throughput bench (`cli.bench_main`) at a small lane target.
+     find6DPosesBatched on [tless, tless], findEssentialMatricesBatched on
+     four two-motion gauntlet scenes), the launch counts set to 0 just
+     before each and read after: each scene against its limit, and each
+     scene alone against the same scene listed first in a batch; then the
+     throughput bench (`cli.bench_main`) at a small lane target and the
+     essential bench line (`eval/extras.bench_essential`);
+  6. runs every single-scene front end once with a progress callback and
+     with_statistics="phases": the callback fires on the card, and
+     phase_times holds the JAX package's keys with device time in it.
 Phase 2 also holds each kernel against its plain version over rows, at
-the shapes the batched front ends give it.
+the shapes the batched front ends give it, and score_fundamental at the
+essential path's shapes (restarts as rows, 409 five-point samples x 10
+solutions), with rows of NaN and inf descriptors among them.
 Each phase prints its seconds. It ends with the total seconds, a
 {"kernels": [...]} line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. It needs a CUDA device and the package
@@ -107,6 +120,25 @@ TLESS_MEAN_GATES = ((8.25, 16.0), (2.5, 12.2))
 TLESS_BATCHED_GATES = ((9.9, 28.8), (2.0, 14.64))
 ME_SLACK = 0.03
 LABEL_DISAGREEMENT_MAX = 0.01
+# findEssentialMatrices on the gauntlet's scenes (eval/extras.gauntlet_scene:
+# "two-s" two motions, "three-s" three motions, scene seed s, random_seed
+# s, extras.ESSENTIAL_KW). Gates, tests/test_gauntlet.py:160-215: at least
+# (or exactly) that many motions and ME <= E_ME_GATE.
+E_SCENES = {"two-0": (2, None), "two-1": (2, None), "two-2": (2, None),
+            "three-1": (3, 3)}
+E_ME_GATE = 0.12
+# The JAX package's misclassification errors on the CPU at those runs, and
+# how many of its runs at random_seed 0-9 on each scene miss the gate, from
+#   JAX_PLATFORMS=cpu python3 tools/seed_spread.py --package jax --only essential
+JAX_CPU_ME_E = {"two-0": 0.022499999999999964, "two-1": 0.022499999999999964,
+                "two-2": 0.01749999999999996, "three-1": 0.026000000000000023}
+JAX_E_MISSES = {"two-0": "1/10", "two-1": "0/10", "two-2": "1/10", "three-1": "4/10"}
+# A three-motion scene whose gate the JAX package itself misses on at
+# least 1 random seed in 5 is printed, not gated; the two-motion gates
+# always hold. The JAX package misses three-1's on 4 of 10 seeds.
+E_PRINTED_ONLY = ("three-1",)
+# The scene of phase 4's card-against-CPU comparison.
+E_CARD_VS_CPU = "two-1"
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s
 # outside the tensor cores.
@@ -202,14 +234,21 @@ def _score_bound(b, n_valid, n_pts, magsac_levels, family):
 def _scene_tensors(torch, dev, scene, rng):
     """A bundled scene padded as the API pads it: (data [N, 4], point
     mask [N], a random compound preference [N], valid count). The scene
-    SYNTHETIC is made here instead: 7000 correspondences of three
+    "essential-s" is the two-motion gauntlet scene of seed s in the
+    calibrated coordinates findEssentialMatrices fits (400
+    correspondences, pad 512); SYNTHETIC is made here: 7000 correspondences of three
     homographies near the identity (0.5 px noise) and 30% outliers in a
     1000 px square, padded to the largest pad level, 7680."""
-    from progressivex_tpu_torch.api import _pad_to
+    from progressivex_tpu_torch.api import _pad_to, essential_inputs
+    from progressivex_tpu_torch.eval.extras import gauntlet_camera, gauntlet_scene
     from progressivex_tpu_torch.io.data import load_corr_scene
 
     if scene == SYNTHETIC:
         corrs = _synthetic_corrs(rng, 7000)
+    elif scene.startswith("essential-"):
+        K = gauntlet_camera()
+        pixels, _ = gauntlet_scene("two", int(scene.partition("-")[2]))
+        corrs = essential_inputs(pixels, K, K, 1.0)[0]
     else:
         corrs, _ = load_corr_scene(scene)
     n, n_pad = len(corrs), _pad_to(len(corrs))
@@ -366,15 +405,15 @@ def _padding_independence(torch, dev, name, family):
 
 
 def _row_kernel_cases(torch, dev, name, lane_scenes, restarts, b, trunc_sq,
-                      exponent, rng):
+                      exponent, rng, family_name=None):
     """The kernel over the rows a batched front end gives it: one lane a
     scene of `lane_scenes` (one pad level), `restarts` rows a lane
     (restart-major, as api_batch lays them out), B hypotheses a row of
-    the row's own scene, at m in {0, 4}, compound on and off in every
-    row."""
+    the row's own scene (minimal solves of `family_name`, by default the
+    kernel's family), at m in {0, 4}, compound on and off in every row."""
     from progressivex_tpu_torch.models import get_family
 
-    family = get_family(name.removeprefix("score_"))
+    family = get_family(family_name or name.removeprefix("score_"))
     lanes = [_scene_tensors(torch, dev, s, rng) for s in lane_scenes]
     descs = [_minimal_descs(torch, family, d, n, b, rng) for d, _, _, n in lanes]
     rows = [j for _ in range(restarts) for j in range(len(lanes))]
@@ -396,6 +435,64 @@ def _row_kernel_cases(torch, dev, name, lane_scenes, restarts, b, trunc_sq,
     return cases
 
 
+def _nan_rows_case(torch, dev, trunc_sq, rng):
+    """score_fundamental on essential descriptors [3 x 4090, 512] of
+    which some rows are NaN or inf, as an invalid five-point solution can
+    give: the finite rows' outputs equal the plain version's and the
+    kernel's on the same rows with the bad ones replaced; the bad rows
+    leave the engine's mask (valid & finite score) at the plain version's
+    verdict, since the minimal solver marks a non-finite E invalid."""
+    from progressivex_tpu_torch.kernels import scoring as ks
+    from progressivex_tpu_torch.models import get_family
+
+    family = get_family("essential")
+    data, pmask, compound, n = _scene_tensors(torch, dev, "essential-0", rng)
+    descs = _minimal_descs(torch, family, data, n, 4090, rng)
+    rows = 3
+    d = descs[None].repeat(rows, 1, 1).contiguous()
+    bad = torch.zeros(rows, 4090, dtype=torch.bool, device=dev)
+    bad[0, [7, 100, 2000]] = True
+    bad[1, 4089] = True
+    bad[2, :64] = True
+    d_bad = d.clone()
+    d_bad[0, [7, 100]] = float("nan")
+    d_bad[0, 2000, 3] = float("inf")
+    d_bad[1, 4089, 0] = float("-inf")
+    d_bad[2, :64, 4] = float("nan")
+    args = (compound[None].repeat(rows, 1), pmask[None].repeat(rows, 1),
+            torch.full((rows,), trunc_sq, device=dev), 2.0,
+            torch.tensor([True, False, True], device=dev), 4)
+    dr = data[None].repeat(rows, 1, 1).contiguous()
+    got = ks.score_fundamental_cuda(dr, d_bad, *args)
+    clean = ks.score_fundamental_cuda(dr, d, *args)
+    want = ks.score_fundamental_plain(dr, d_bad, *args)
+    torch.cuda.synchronize()
+    ok = ~bad
+    err = 0.0
+    for g, c, w, what in zip(got, clean, want, ("scores", "inliers", "dots", "norms")):
+        if not torch.equal(g[ok], c[ok]):
+            raise AssertionError(f"NaN rows changed the finite rows' {what}")
+        if what == "inliers":
+            if not torch.equal(g[ok], w[ok]):
+                raise AssertionError("NaN rows case: inliers differ from the plain version")
+            continue
+        if not torch.allclose(g[ok], w[ok], rtol=1e-3, atol=1e-2):
+            raise AssertionError(f"NaN rows case: {what} differ from the plain version")
+        err = max(err, float((g[ok] - w[ok]).abs().max()))
+    valid = ~bad  # the solver's flag: a non-finite E is never valid
+    masked_kernel = valid & torch.isfinite(got[0])
+    masked_plain = valid & torch.isfinite(want[0])
+    if not torch.equal(masked_kernel, masked_plain):
+        raise AssertionError("NaN rows case: the engine's mask differs")
+    case = {"kernel": "score_fundamental", "label": "essential NaN rows",
+            "rows": rows, "shape": [4090, data.shape[0]], "bad_rows": int(bad.sum()),
+            "kernel_bad_scores_finite": bool(torch.isfinite(got[0][bad]).all()),
+            "plain_bad_scores_nan": bool(torch.isnan(want[0][bad]).all()),
+            "max_abs_err": err}
+    print("kernel case", json.dumps(case), flush=True)
+    return case
+
+
 def phase_kernel(torch, dev):
     """Each kernel against its plain version at its path's shapes, one
     problem a launch: H at [256 | 4, 384 | 2304 | 7680] (proposal sub-batch
@@ -404,7 +501,9 @@ def phase_kernel(torch, dev):
     candidates); then over rows, at the batched front ends' shapes: H
     [2 x 256, 384] (oldclassicswing, unionhouse) and [1 x 256, 2304]
     (unihouse), F [16 x 1536, 256] (book, breadcube, cubetoy and a
-    replica: 4 lanes x 4 restarts)."""
+    replica: 4 lanes x 4 restarts); and F's kernel at the essential
+    path's shapes, [3 x 4090, 512] alone and [12 x 4090, 512] batched,
+    with a case of NaN and inf descriptor rows."""
     from progressivex_tpu_torch.core.config import truncated_sq_threshold
 
     rng = np.random.default_rng(0)
@@ -425,7 +524,19 @@ def phase_kernel(torch, dev):
                               ("book", "breadcube", "cubetoy", "book"), 4, 1536,
                               tau_f, 1.0, rng),
     }
-    return out, rows
+    # The essential path: E in place of F on calibrated coordinates, the
+    # threshold over the focal length (1.5 / 800), exponent 2; three
+    # restarts as rows, B = 409 samples x 10 solutions, one scene alone
+    # and four in the batched call.
+    tau_e = float(truncated_sq_threshold(1.5 / 800.0))
+    essential = (
+        _row_kernel_cases(torch, dev, "score_fundamental", ("essential-0",), 3, 4090,
+                          tau_e, 2.0, rng, "essential")
+        + _row_kernel_cases(torch, dev, "score_fundamental",
+                            tuple(f"essential-{s}" for s in range(4)), 3, 4090,
+                            tau_e, 2.0, rng, "essential"))
+    essential.append(_nan_rows_case(torch, dev, tau_e, rng))
+    return out, rows, essential
 
 
 PATHS = {
@@ -876,6 +987,234 @@ def phase_batched_new(torch, problem, names):
     return res
 
 
+def _essential_fit(name, **kw):
+    """findEssentialMatrices on gauntlet scene `name` ("two-s" or
+    "three-s") at the gauntlet's keywords, random_seed s. Returns (models,
+    labels, stats, gt)."""
+    import progressivex_tpu_torch
+    from progressivex_tpu_torch.eval import extras
+
+    kind, _, seed = name.partition("-")
+    corrs, gt = extras.gauntlet_scene(kind, int(seed))
+    K = extras.gauntlet_camera()
+    models, labels, stats = progressivex_tpu_torch.findEssentialMatrices(
+        corrs, K, K, **extras.ESSENTIAL_KW, random_seed=int(seed), with_statistics=True,
+        **kw)
+    return models, labels, stats, gt
+
+
+def _essential_gate(name, k, me):
+    """The gauntlet's gate of scene `name`, or None where it is only
+    printed (E_PRINTED_ONLY)."""
+    k_min, k_max = E_SCENES[name]
+    ok = k >= k_min and (k_max is None or k <= k_max) and me <= E_ME_GATE
+    return None if name in E_PRINTED_ONLY else ok
+
+
+def phase_essential(torch):
+    """findEssentialMatrices on the gauntlet's scenes E_SCENES, after one
+    untimed warm-up fit of the first, the launch counts set to 0 just
+    before each scene and read after: score_fundamental must have run, and
+    each scene meets its gate (K and ME), beside the JAX package's CPU
+    ME at the same seed."""
+    from progressivex_tpu_torch.io.metrics import misclassification
+    from progressivex_tpu_torch.kernels.scoring import LAUNCHES
+
+    names = list(E_SCENES)
+    _essential_fit(names[0])  # warm-up
+    torch.cuda.synchronize()
+    results, failures = {}, []
+    for name in names:
+        _zero_launches()
+        t0 = time.perf_counter()
+        models, labels, stats, gt = _essential_fit(name)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        k = models.shape[0] // 3
+        me = float(misclassification(labels, gt))
+        gate = _essential_gate(name, k, me)
+        res = {"problem": "E", "entry": "findEssentialMatrices", "scene": name,
+               "points": len(gt), "me": me, "jax_cpu_me": JAX_CPU_ME_E[name],
+               "jax_cpu_gate_misses": JAX_E_MISSES[name], "n_models": k,
+               "rounds": stats.rounds_run, "wall_s": wall,
+               "launches": launches["score_fundamental"],
+               "other_launches": {n: v for n, v in launches.items()
+                                  if n != "score_fundamental"},
+               "restart": stats.restart, "restart_energies": stats.restart_energies,
+               "gate": "printed only" if gate is None else gate}
+        print("main path", json.dumps(res), flush=True)
+        if launches["score_fundamental"] <= 0:
+            failures.append(f"{name}: score_fundamental never launched")
+        if not (models.shape == (3 * k, 3) and labels.shape == gt.shape
+                and np.isfinite(models).all()):
+            failures.append(f"{name}: outputs {models.shape}, {labels.shape}")
+        if gate is False:
+            failures.append(f"{name}: {k} motions, ME {me} against the gate "
+                            f"{E_SCENES[name]}, ME <= {E_ME_GATE}")
+        results[name] = dict(res, labels=labels)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return results
+
+
+def phase_card_vs_cpu_essential(results, name):
+    """The essential scene `name` through the port on the CPU, against the
+    card's fit of phase 3 (phase 4's rule)."""
+    from progressivex_tpu_torch.io.metrics import misclassification
+
+    models, labels, stats, gt = _essential_fit(name, device="cpu")
+    cuda = results[name]
+    disagreement = float(np.mean(labels != cuda["labels"]))
+    res = {"problem": "E", "scene": name, "n_models_cuda": cuda["n_models"],
+           "n_models_cpu": models.shape[0] // 3, "restart_cuda": cuda["restart"],
+           "restart_cpu": stats.restart, "label_disagreement": disagreement,
+           "me_cuda": cuda["me"], "me_cpu": float(misclassification(labels, gt))}
+    print("card vs cpu", json.dumps(res), flush=True)
+    if res["n_models_cpu"] != res["n_models_cuda"]:
+        raise AssertionError(f"n_models differ: card {res['n_models_cuda']}, "
+                             f"CPU {res['n_models_cpu']}")
+    if res["restart_cpu"] != res["restart_cuda"]:
+        raise AssertionError(f"winning restarts differ: card {res['restart_cuda']}, "
+                             f"CPU {res['restart_cpu']}")
+    if disagreement > LABEL_DISAGREEMENT_MAX:
+        raise AssertionError(f"labels disagree on {disagreement:.4f} of points")
+
+
+# findEssentialMatricesBatched at the gauntlet's keywords and the
+# single-scene front end's engine defaults (two split rounds, MAGSAC
+# ranking), which the batched front ends leave at the engine's.
+E_BATCHED_KW = {"split_pass": 2, "magsac_levels": 4}
+
+
+def phase_batched_essential(torch, seeds):
+    """findEssentialMatricesBatched on the two-motion gauntlet scenes of
+    `seeds`, the launch counts set to 0 just before the batch and read
+    after (score_fundamental must have run): each scene's model count and
+    ME printed, and each scene alone against the same scene listed first
+    in a batch (phase 5's rule)."""
+    import progressivex_tpu_torch
+    from progressivex_tpu_torch.eval import extras
+    from progressivex_tpu_torch.io.metrics import misclassification
+    from progressivex_tpu_torch.kernels.scoring import LAUNCHES
+
+    K = extras.gauntlet_camera()
+    scenes = [extras.gauntlet_scene("two", s) for s in seeds]
+
+    def batch(order):
+        return progressivex_tpu_torch.findEssentialMatricesBatched(
+            [scenes[i][0] for i in order], K, K, **extras.ESSENTIAL_KW, **E_BATCHED_KW,
+            random_seed=0)
+
+    _zero_launches()
+    t0 = time.perf_counter()
+    out = batch(range(len(seeds)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    res = {"problem": "E", "entry": "findEssentialMatricesBatched",
+           "scenes": [f"two-{s}" for s in seeds], "wall_s": wall,
+           "launches": launches["score_fundamental"], "per_scene": []}
+    failures = [] if launches["score_fundamental"] > 0 else [
+        "batched E: score_fundamental never launched"]
+    for i, seed in enumerate(seeds):
+        models, labels = out[i]
+        gt = scenes[i][1]
+        if not (models.shape[1] == 3 and models.shape[0] % 3 == 0
+                and labels.shape == gt.shape and np.isfinite(models).all()):
+            raise AssertionError(f"batched two-{seed}: outputs {models.shape}, {labels.shape}")
+        order = list(range(i, len(seeds))) + list(range(i))
+        first = out[i] if i == 0 else batch(order)[0]
+        alone = batch([i])[0]
+        k_first = first[0].shape[0] // 3
+        same_k = alone[0].shape == first[0].shape
+        disagreement = _label_disagreement(alone[1], first[1], k_first) if same_k else 1.0
+        res["per_scene"].append({
+            "scene": f"two-{seed}", "n_models": models.shape[0] // 3,
+            "me": float(misclassification(labels, gt)), "n_models_first": k_first,
+            "n_models_alone": alone[0].shape[0] // 3,
+            "alone_label_disagreement": disagreement})
+        if not same_k:
+            failures.append(f"batched two-{seed}: {k_first} models listed first, "
+                            f"{alone[0].shape[0] // 3} alone")
+        elif disagreement > LABEL_DISAGREEMENT_MAX:
+            failures.append(f"batched two-{seed}: alone and listed first, labels "
+                            f"disagree on {disagreement:.4f} of points")
+    print("batched path", json.dumps(res), flush=True)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return res
+
+
+def phase_bench_essential():
+    """The port's `eval/extras.bench_essential` line (the JAX package's
+    keys): the two-motion gauntlet at seeds 0-2 and a best-of-2 latency."""
+    from progressivex_tpu_torch.eval.extras import bench_essential
+
+    out = bench_essential()
+    print("bench essential", json.dumps(out), flush=True)
+    return out
+
+
+def _phase6_calls():
+    """(entry point, inputs, keywords) of one scene of every single-scene
+    front end, at phase 3's keywords."""
+    from progressivex_tpu_torch.eval import extras
+    from progressivex_tpu_torch.eval.adelaide import scene_kwargs
+    from progressivex_tpu_torch.io.data import load_corr_scene, load_tless_scene
+
+    oc, book = load_corr_scene("oldclassicswing")[0], load_corr_scene("book")[0]
+    K = extras.gauntlet_camera()
+    return [
+        ("findHomographies", (oc,), scene_kwargs(len(oc), "H")),
+        ("findTwoViewMotions", (book,), scene_kwargs(len(book), "F")),
+        ("findEssentialMatrices", (extras.gauntlet_scene("two", 0)[0], K, K),
+         extras.ESSENTIAL_KW),
+        ("findLines", (extras.make_lines_scene(seed=0)[0],), extras.LINES_KW),
+        ("findVanishingPoints", (extras.make_vp_scene(seed=0)[0],), extras.VP_KW),
+        ("find6DPoses", load_tless_scene()[:3], extras.TLESS_KW),
+    ]
+
+
+def phase_progress_and_phases(torch):
+    """Every single-scene front end once on the card with a progress
+    callback and with_statistics="phases": at least one event a round run
+    and restart, each with the JAX package's keys, and phase_times with
+    the JAX package's keys, its parts adding up to a total above 0."""
+    import progressivex_tpu_torch
+
+    keys = {"round", "accepted", "inliers", "tanimoto", "score", "energy", "n_active",
+            "labels"}
+    phase_keys = {"progx_proposal_ms", "progx_sampling_ms", "progx_graph_ms",
+                  "progx_labeling_ms", "progx_refit_ms", "other_ms", "total_device_ms"}
+    out, failures = {}, []
+    for entry, inputs, kw in _phase6_calls():
+        events = []
+        t0 = time.perf_counter()
+        _, _, stats = getattr(progressivex_tpu_torch, entry)(
+            *inputs, **kw, random_seed=0, progress_callback=events.append,
+            with_statistics="phases")
+        torch.cuda.synchronize()
+        pt = stats.phase_times
+        restarts = len(stats.restart_energies)
+        res = {"entry": entry, "events": len(events), "rounds": stats.rounds_run,
+               "restarts": restarts, "phase_times": pt,
+               "seconds": time.perf_counter() - t0}
+        print("progress and phases", json.dumps(res), flush=True)
+        if len(events) < stats.rounds_run * restarts or any(set(e) != keys for e in events):
+            failures.append(f"{entry}: {len(events)} events for {stats.rounds_run} rounds "
+                            f"x {restarts} restarts")
+        if pt is None or set(pt) != phase_keys or not pt["total_device_ms"] > 0.0:
+            failures.append(f"{entry}: phase_times {pt}")
+        elif abs(sum(v for k, v in pt.items() if k != "total_device_ms")
+                 - pt["total_device_ms"]) > 0.02 * pt["total_device_ms"] + 0.01:
+            failures.append(f"{entry}: phase_times parts do not add up: {pt}")
+        out[entry] = res
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return out
+
+
 FAILURES = []
 
 
@@ -944,31 +1283,43 @@ def main():
     results = {p: _timed(f"3 {p}", phase_main_path, torch, p) for p in ("H", "F")}
     new = {p: _timed(f"3 {p}", phase_new_path, torch, p) for p in ("L", "V")}
     _timed("3 P", phase_tless, torch)
+    results["E"] = _timed("3 E", phase_essential, torch)
     _timed("4 H", phase_card_vs_cpu, results["H"], "H", "oldclassicswing")
     _timed("4 F", phase_card_vs_cpu, results["F"], "F", "book")
     for p in ("L", "V"):
         _timed(f"4 {p}", phase_card_vs_cpu_new, new[p], p)
+    if results["E"]:
+        _timed("4 E", phase_card_vs_cpu_essential, results["E"], E_CARD_VS_CPU)
     batched = {p: _timed(f"5 {p}", phase_batched, torch, p) for p in ("H", "F")}
     _timed("5 L", phase_batched_new, torch, "L", [f"lines-{s}" for s in range(4)])
     _timed("5 V", phase_batched_new, torch, "V", [f"vp-{s}" for s in range(4)])
     _timed("5 P", phase_batched_new, torch, "P", ["tless", "tless"])
+    batched["E"] = _timed("5 E", phase_batched_essential, torch, (0, 1, 2, 3))
     bench = _timed("5 bench", phase_bench)
+    bench_e = _timed("5 bench E", phase_bench_essential)
+    _timed("6", phase_progress_and_phases, torch)
     print(f"total seconds {time.perf_counter() - t_start:.3f}", flush=True)
     if FAILURES:
         _fail("; ".join(FAILURES))
 
-    kernel_cases, row_cases = kernel_phase
+    kernel_cases, row_cases, essential_cases = kernel_phase
     kernels = [
         _kernel_line("score_homography", *kernel_cases["score_homography"],
                      results["H"], [256, 2304],
                      "_score_kernel :91-126 + _homography_r2 :70-85",
                      row_cases["score_homography"], batched["H"]),
         _kernel_line("score_fundamental", *kernel_cases["score_fundamental"],
-                     results["F"], [1536, 256],
+                     {**results["F"], **results["E"]}, [1536, 256],
                      "_score_kernel :91-126 + _sampson_r2 :51-67",
-                     row_cases["score_fundamental"], batched["F"]),
+                     row_cases["score_fundamental"] + essential_cases[:-1], batched["F"]),
     ]
+    kernels[1].update({
+        "launches_essential": sum(r["launches"] for r in results["E"].values()),
+        "launches_essential_batched": batched["E"]["launches"],
+        "max_abs_err": max(kernels[1]["max_abs_err"],
+                           max(c["max_abs_err"] for c in essential_cases))})
     print("bench", json.dumps(bench), flush=True)
+    print("bench essential", json.dumps(bench_e), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,12 +13,15 @@ Pallas kernel of the JAX package, is a hand-written CUDA kernel per family
 `csrc/score_fundamental.cu`) on the card and its plain torch version on
 the CPU.
 
-Ported so far: the multi-homography path (`findHomographies`), the
-two-view-motion path (`findTwoViewMotions`), 2D lines (`findLines`),
-vanishing points (`findVanishingPoints`) and 6D poses (`find6DPoses`),
-each also batched over many scenes (`find*Batched`) on the engine's row
-axis. The families other than H and F reach no kernel in the JAX package
-and are scored by plain torch on every device.
+Ported: the multi-homography path (`findHomographies`), the
+two-view-motion path (`findTwoViewMotions`), essential matrices
+(`findEssentialMatrices`, scored by the fundamental family's kernel), 2D
+lines (`findLines`), vanishing points (`findVanishingPoints`) and 6D poses
+(`find6DPoses`), each also batched over many scenes (`find*Batched`) on
+the engine's row axis, with live progress (`progress_callback`) and
+device time by phase (`with_statistics="phases"`). Lines, VPs and poses
+reach no kernel in the JAX package and are scored by plain torch on every
+device.
 """
 
 import torch as _torch
@@ -37,6 +40,7 @@ _torch.set_float32_matmul_precision("highest")
 from progressivex_tpu_torch.api import (  # noqa: E402,F401
     Statistics,
     find6DPoses,
+    findEssentialMatrices,
     findHomographies,
     findLines,
     findTwoViewMotions,
@@ -44,6 +48,7 @@ from progressivex_tpu_torch.api import (  # noqa: E402,F401
 )
 from progressivex_tpu_torch.api_batch import (  # noqa: E402,F401
     find6DPosesBatched,
+    findEssentialMatricesBatched,
     findHomographiesBatched,
     findLinesBatched,
     findTwoViewMotionsBatched,

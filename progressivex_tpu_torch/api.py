@@ -1,8 +1,8 @@
-"""pyprogressivex-compatible entry points — counterpart of progressivex_tpu/api.py
-(the essential-matrix extension comes with its slice).
+"""pyprogressivex-compatible entry points — counterpart of progressivex_tpu/api.py.
 
   findHomographies(corrs, w1, h1, w2, h2, ...)   -> ([3K, 3], labeling)
   findTwoViewMotions(corrs, w1, h1, w2, h2, ...) -> ([3K, 3], labeling)
+  findEssentialMatrices(corrs, K1, K2, ...)      -> ([3K, 3], labeling)
   findLines(points, weights, w, h, ...)          -> ([K, 3], labeling)
   findVanishingPoints(lines, weights, w, h, ...) -> ([K, 3], labeling)
   find6DPoses(x1y1, x2y2z2, K, ...)              -> ([3K, 4], labeling)
@@ -13,6 +13,10 @@ device unless `device="cpu"` is passed, and raises without a CUDA device.
 `random_seed` seeds the CPU torch.Generator the samples are drawn from,
 so the card and the CPU fit the same samples; torch's numbers differ
 from jax.random's, so a seed does not reproduce the JAX package's run.
+`progress_callback` receives one dict per round and restart, as the JAX
+package's (core/engine.LIVE_CALLBACK); `with_statistics="phases"` runs the
+fit once more under torch.profiler and fills `Statistics.phase_times`
+(io/profiling.py).
 """
 
 from __future__ import annotations
@@ -39,6 +43,8 @@ PAD_LEVELS = (128, 256, 384, 512, 768, 1024, 1536, 2304, 3456, 5120, 7680)
 # progressivex_tpu/api.py:106-126).
 _MAX_HYP_BY_FAMILY = {"homography": 256, "line2d": 512,
                       "vanishing_point": 512, "fundamental": 512}
+# The essential family has no entry: its sub-batch is 4096 // 10 = 409
+# samples of up to 10 solutions at max_iters >= 409.
 # Sub-batches per round: PROGX_MAX_SUBBATCHES, default 1, the JAX package's
 # measured default (progressivex_tpu/api.py:29-32, :160-161).
 _MAX_SUBBATCHES = int(os.environ.get("PROGX_MAX_SUBBATCHES", "1"))
@@ -49,7 +55,9 @@ class Statistics:
     """Run statistics (progressive_x.h:75-104); `iterations` holds one
     record per round run of the winning restart. `restart` is the winning
     restart's index and `restart_energies` every restart's final energy.
-    `phase_times` stays None in this slice."""
+    `phase_times`, with `with_statistics="phases"` (any string holding
+    "phase"), is the device time of one more, profiled, fit by engine
+    phase, in the JAX package's keys (io/profiling.py); None otherwise."""
 
     processing_time: float
     rounds_run: int
@@ -90,7 +98,7 @@ def _run(family_name, data, weights, *, threshold, conf,
          lo_spatial_lambda=0.5, n_restarts=1, final_polish=0, final_relabel=0,
          magsac_levels=0, split_pass=0, polish_trim=0.0, polish_research=0,
          restart_rule="energy", max_rounds=10, pearl_iters=3,
-         max_subbatches=None, device=None):
+         max_subbatches=None, progress_callback=None, device=None):
     dev = resolve_device(device)
     t0 = time.perf_counter()
     data = np.ascontiguousarray(data, np.float32)
@@ -126,6 +134,7 @@ def _run(family_name, data, weights, *, threshold, conf,
         restart_rule=str(restart_rule),
         max_rounds=int(max_rounds),
         pearl_iters=int(pearl_iters),
+        live_progress=progress_callback is not None,
     )
     params = make_params(
         threshold=threshold,
@@ -138,11 +147,20 @@ def _run(family_name, data, weights, *, threshold, conf,
         scoring_exponent=scoring_exponent,
         n_valid=n,
     )
-    gen = torch.Generator().manual_seed(int(random_seed))
-    result = engine.fit(family, cfg, params, torch.from_numpy(data_p).to(dev),
-                        torch.from_numpy(mask).to(dev), torch.from_numpy(w).to(dev),
-                        generator=gen,
-                        graph_data=None if graph_p is None else torch.from_numpy(graph_p).to(dev))
+    inputs = (torch.from_numpy(data_p).to(dev), torch.from_numpy(mask).to(dev),
+              torch.from_numpy(w).to(dev))
+    graph_t = None if graph_p is None else torch.from_numpy(graph_p).to(dev)
+
+    def fit_once():
+        return engine.fit(family, cfg, params, *inputs,
+                          generator=torch.Generator().manual_seed(int(random_seed)),
+                          graph_data=graph_t)
+
+    engine.LIVE_CALLBACK = progress_callback
+    try:
+        result = fit_once()
+    finally:
+        engine.LIVE_CALLBACK = None
     descs, labels = engine.compact_result(result, n)
     processing_time = time.perf_counter() - t0
     if do_logging:
@@ -153,6 +171,11 @@ def _run(family_name, data, weights, *, threshold, conf,
     if with_statistics:
         k = descs.shape[0]
         rl = result.round_log
+        phase_times = None
+        if isinstance(with_statistics, str) and "phase" in with_statistics:
+            from progressivex_tpu_torch.io.profiling import measure_phase_times
+
+            phase_times = measure_phase_times(fit_once, dev)
         stats = Statistics(
             processing_time=processing_time,
             rounds_run=result.rounds_run,
@@ -166,6 +189,7 @@ def _run(family_name, data, weights, *, threshold, conf,
                  "pearl_energy": rl.energy[r], "active_models": rl.n_active[r]}
                 for r in range(result.rounds_run)
             ],
+            phase_times=phase_times,
             restart=result.restart,
             restart_energies=result.restart_energies,
         )
@@ -198,6 +222,7 @@ def findHomographies(
     pearl_iters=3,
     split_pass=0,
     max_subbatches=None,
+    progress_callback=None,
     device=None,
 ):
     """Multi-homography fitting. corrs: [N, 4] = [x1, y1, x2, y2].
@@ -220,7 +245,8 @@ def findHomographies(
         n_restarts=n_restarts, magsac_levels=magsac_levels,
         final_relabel=final_relabel, max_rounds=max_rounds,
         pearl_iters=pearl_iters, split_pass=split_pass,
-        max_subbatches=max_subbatches, device=device,
+        max_subbatches=max_subbatches,
+        progress_callback=progress_callback, device=device,
     )
     out = descs.reshape(-1, 3).astype(np.float64)
     return (out, labels, stats) if with_statistics else (out, labels)
@@ -253,6 +279,7 @@ def findTwoViewMotions(
     pearl_iters=3,
     split_pass=0,
     max_subbatches=None,
+    progress_callback=None,
     device=None,
 ):
     """Multi two-view-motion (fundamental matrix) fitting. corrs: [N, 4] =
@@ -277,7 +304,85 @@ def findTwoViewMotions(
         n_restarts=n_restarts, magsac_levels=magsac_levels,
         final_relabel=final_relabel, restart_rule=restart_rule,
         max_rounds=max_rounds, pearl_iters=pearl_iters, split_pass=split_pass,
-        max_subbatches=max_subbatches, device=device,
+        max_subbatches=max_subbatches,
+        progress_callback=progress_callback, device=device,
+    )
+    out = descs.reshape(-1, 3).astype(np.float64)
+    return (out, labels, stats) if with_statistics else (out, labels)
+
+
+def check_essential_inputs(corrs, K1, K2, every=""):
+    """corrs, K1 and K2 as float64 arrays, validated as the JAX front ends
+    validate them."""
+    corrs = np.asarray(corrs, np.float64)
+    if corrs.ndim != 2 or corrs.shape[1] != 4 or corrs.shape[0] < 5:
+        raise ValueError(f"{every}corrs should be an array with dims [n,4], n>=5")
+    K1, K2 = np.asarray(K1, np.float64), np.asarray(K2, np.float64)
+    if K1.shape != (3, 3) or K2.shape != (3, 3):
+        raise ValueError(f"{every}K1/K2 should be arrays with dims [3,3]")
+    return corrs, K1, K2
+
+
+def essential_inputs(corrs, K1, K2, threshold):
+    """The essential front ends' preprocessing (progressivex_tpu/api.py:651-657),
+    in float64 on the host: each view's pixels normalized by its K^-1, the
+    threshold divided by the mean of the four focal lengths. Returns (data
+    [N, 4] calibrated, normalized threshold); the graph is built on the
+    pixel correspondences themselves."""
+    ones = np.ones((corrs.shape[0], 1))
+    n1 = (np.concatenate([corrs[:, :2], ones], 1) @ np.linalg.inv(K1).T)[:, :2]
+    n2 = (np.concatenate([corrs[:, 2:4], ones], 1) @ np.linalg.inv(K2).T)[:, :2]
+    f = 0.25 * (K1[0, 0] + K1[1, 1] + K2[0, 0] + K2[1, 1])
+    return np.concatenate([n1, n2], axis=1), threshold / f
+
+
+def findEssentialMatrices(
+    corrs,
+    K1,
+    K2,
+    threshold=0.75,
+    conf=0.5,
+    spatial_coherence_weight=0.1,
+    neighborhood_ball_radius=200.0,
+    maximum_tanimoto_similarity=0.4,
+    max_iters=1000,
+    minimum_point_number=10,
+    maximum_model_number=-1,
+    sampler_id=0,
+    scoring_exponent=2,
+    do_logging=False,
+    random_seed=0,
+    with_statistics=False,
+    n_restarts=1,
+    split_pass=2,
+    magsac_levels=4,
+    progress_callback=None,
+    device=None,
+):
+    """Multi essential-matrix fitting (the JAX package's extension: the
+    reference ships the five-point solver but no front end). corrs: [N, 4]
+    pixel correspondences [x1, y1, x2, y2], N >= 5; K1, K2: [3, 3]
+    intrinsics of the two views. Points are normalized by K^-1 and the
+    threshold divided by the mean focal length; the neighborhood graph is
+    built on the pixels. Returns ([3K, 3] stacked row-major essential
+    matrices in normalized coordinates, labeling). The defaults (two final
+    split rounds, MAGSAC ranking) are the JAX package's, measured on its
+    gauntlet (see progressivex_tpu/api.findEssentialMatrices)."""
+    corrs, K1, K2 = check_essential_inputs(corrs, K1, K2)
+    data, thr = essential_inputs(corrs, K1, K2, threshold)
+    descs, labels, stats = _run(
+        "essential", data, None,
+        threshold=thr, conf=conf,
+        spatial_coherence_weight=spatial_coherence_weight,
+        neighborhood_ball_radius=neighborhood_ball_radius,
+        maximum_tanimoto_similarity=maximum_tanimoto_similarity,
+        max_iters=max_iters, minimum_point_number=minimum_point_number,
+        maximum_model_number=maximum_model_number, sampler_id=sampler_id,
+        scoring_exponent=scoring_exponent, do_logging=do_logging,
+        random_seed=random_seed, graph_data=corrs,
+        with_statistics=with_statistics, n_restarts=n_restarts,
+        split_pass=split_pass, magsac_levels=magsac_levels,
+        progress_callback=progress_callback, device=device,
     )
     out = descs.reshape(-1, 3).astype(np.float64)
     return (out, labels, stats) if with_statistics else (out, labels)
@@ -302,6 +407,7 @@ def findLines(
     random_seed=0,
     with_statistics=False,
     n_restarts=1,
+    progress_callback=None,
     device=None,
 ):
     """Multi 2D-line fitting. points: [N, 2], weights: [N] per point or
@@ -322,7 +428,7 @@ def findLines(
         sampler_id=line_sampler(sampler_id),
         scoring_exponent=scoring_exponent, do_logging=do_logging,
         random_seed=random_seed, with_statistics=with_statistics,
-        n_restarts=n_restarts, device=device,
+        n_restarts=n_restarts, progress_callback=progress_callback, device=device,
     )
     out = descs.astype(np.float64)
     return (out, labels, stats) if with_statistics else (out, labels)
@@ -347,6 +453,7 @@ def findVanishingPoints(
     random_seed=0,
     with_statistics=False,
     n_restarts=1,
+    progress_callback=None,
     device=None,
 ):
     """Multi vanishing-point fitting. lines: [N, 4] segments [xs, ys, xe,
@@ -367,7 +474,7 @@ def findVanishingPoints(
         sampler_id=vp_sampler(sampler_id),
         scoring_exponent=scoring_exponent, do_logging=do_logging,
         random_seed=random_seed, with_statistics=with_statistics,
-        n_restarts=n_restarts, device=device,
+        n_restarts=n_restarts, progress_callback=progress_callback, device=device,
     )
     out = descs.astype(np.float64)
     return (out, labels, stats) if with_statistics else (out, labels)
@@ -431,6 +538,7 @@ def find6DPoses(
     final_polish=3,
     polish_research=0,
     fuse_duplicates=True,
+    progress_callback=None,
     device=None,
 ):
     """Multi 6D-pose fitting from 2D-3D correspondences. x1y1: [N, 2]
@@ -455,7 +563,8 @@ def find6DPoses(
         graph_data=graph, with_statistics=with_statistics,
         n_restarts=n_restarts, lo_spatial_lambda=0.0,
         final_polish=final_polish, polish_trim=polish_trim,
-        polish_research=polish_research, device=device,
+        polish_research=polish_research, progress_callback=progress_callback,
+        device=device,
     )
     if fuse_duplicates:
         descs, labels = _fuse_pose_duplicates(descs, labels, norm_xy, x2y2z2, thr)

@@ -1,8 +1,9 @@
-"""Batched multi-scene front ends — counterpart of progressivex_tpu/api_batch.py
-(the essential-matrix extension comes with its slice).
+"""Batched multi-scene front ends — counterpart of progressivex_tpu/api_batch.py.
 
   findHomographiesBatched(corrs_list, ...)    -> [([3K_i, 3], labeling_i), ...]
   findTwoViewMotionsBatched(corrs_list, ...)  -> [([3K_i, 3], labeling_i), ...]
+  findEssentialMatricesBatched(corrs_list, K1_list, K2_list, ...)
+                                              -> [([3K_i, 3], labeling_i), ...]
   findLinesBatched(points_list, ...)          -> [([K_i, 3], labeling_i), ...]
   findVanishingPointsBatched(lines_list, ...) -> [([K_i, 3], labeling_i), ...]
   find6DPosesBatched(x1y1_list, x2y2z2_list, K_list, ...)
@@ -12,9 +13,9 @@ The layout is the JAX package's: scenes are grouped by pad level
 (api.PAD_LEVELS); each group is one `engine.fit_rows` call on the card,
 every scene a lane of its row axis; lane counts pad up to the next power
 of two by cyclic replication; restarts are flattened into rows (restart r
-of lane j is row r * lanes + j); `n_valid`, `threshold` (for 6D poses a
-scene's own focal length scales it) and the graph coordinates ride per
-row;
+of lane j is row r * lanes + j); `n_valid`, `threshold` (for 6D poses and
+essential matrices a scene's own focal lengths scale it) and the graph
+coordinates ride per row;
 and the winning restart of each lane is chosen on the host
 (`engine.select_restart`). Outputs match the single-scene front ends
 element for element.
@@ -287,6 +288,64 @@ def findTwoViewMotionsBatched(
         magsac_levels=magsac_levels, final_relabel=final_relabel,
         restart_rule=restart_rule, max_rounds=max_rounds,
         pearl_iters=pearl_iters, split_pass=split_pass,
+        mesh=mesh, n_devices=n_devices, device=device, **engine_kwargs,
+    )
+    return [(d.reshape(-1, 3).astype(np.float64), l) for d, l in out]
+
+
+def findEssentialMatricesBatched(
+    corrs_list,
+    K1_list,
+    K2_list,
+    threshold=0.75,
+    conf=0.5,
+    spatial_coherence_weight=0.1,
+    neighborhood_ball_radius=200.0,
+    maximum_tanimoto_similarity=0.4,
+    max_iters=1000,
+    minimum_point_number=10,
+    maximum_model_number=-1,
+    sampler_id=0,
+    scoring_exponent=2,
+    do_logging=False,
+    random_seed=0,
+    n_restarts=1,
+    mesh=None,
+    n_devices=None,
+    device=None,
+    **engine_kwargs,
+):
+    """Multi essential-matrix fitting over a list of pixel correspondence
+    sets [n_i, 4] in one batch on the card. K1_list and K2_list are one
+    [3, 3] a scene or a single shared [3, 3]; each scene's K^-1
+    normalization and threshold over its mean focal length ride per row,
+    and its graph is built on its pixels, as in `findEssentialMatrices`.
+    `engine_kwargs` takes the engine extensions (split_pass,
+    magsac_levels, ...): as in the JAX package, their defaults here are
+    the engine's, not the single-scene front end's. Returns a list of
+    ([3K_i, 3] stacked E rows in normalized coordinates, labeling_i)."""
+    n_scenes = len(corrs_list)
+    K1s = list(K1_list) if isinstance(K1_list, (list, tuple)) else [K1_list] * n_scenes
+    K2s = list(K2_list) if isinstance(K2_list, (list, tuple)) else [K2_list] * n_scenes
+    if len(K1s) != n_scenes or len(K2s) != n_scenes:
+        raise ValueError("corrs_list, K1_list, K2_list length mismatch")
+    datas, graphs, ths = [], [], []
+    for corrs, K1, K2 in zip(corrs_list, K1s, K2s):
+        corrs, K1, K2 = _api.check_essential_inputs(corrs, K1, K2, "every ")
+        data, thr = _api.essential_inputs(corrs, K1, K2, threshold)
+        datas.append(np.ascontiguousarray(data, np.float32))
+        graphs.append(np.ascontiguousarray(corrs, np.float32))
+        ths.append(thr)
+    out = _run_batched(
+        "essential", datas, None,
+        thresholds=ths, conf=conf,
+        spatial_coherence_weight=spatial_coherence_weight,
+        neighborhood_ball_radius=neighborhood_ball_radius,
+        maximum_tanimoto_similarity=maximum_tanimoto_similarity,
+        max_iters=max_iters, minimum_point_number=minimum_point_number,
+        maximum_model_number=maximum_model_number, sampler_id=sampler_id,
+        scoring_exponent=scoring_exponent, graph_datas=graphs,
+        do_logging=do_logging, random_seed=random_seed, n_restarts=n_restarts,
         mesh=mesh, n_devices=n_devices, device=device, **engine_kwargs,
     )
     return [(d.reshape(-1, 3).astype(np.float64), l) for d, l in out]

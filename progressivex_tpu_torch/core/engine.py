@@ -34,6 +34,16 @@ extension sub-batches. `fit` hands every restart the same generator, so
 restart 0 draws first, then restart 1, and so on. The `presampled`
 argument replaces the draws (a test replays the JAX package's exact
 samples through it).
+
+Live progress (`cfg.live_progress`): after each pass of the round loop,
+`LIVE_CALLBACK` receives one dict a row, in row order, with the JAX
+package's keys (progressivex_tpu/core/engine.py:71-94): a row's "round" is
+its rounds run before the pass, frozen once the row is done, as the vmapped
+JAX loop emits it. Without it the loop reads nothing more to the host.
+Phases are tagged with `torch.profiler.record_function` under the JAX
+package's scope names (progx_graph, progx_sampling, progx_proposal,
+progx_pearl, and in core/pearl.py progx_labeling and progx_refit), which
+`io/profiling.measure_phase_times` reads; a tag costs no launch.
 """
 
 from __future__ import annotations
@@ -44,6 +54,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from progressivex_tpu_torch.core.config import (EngineConfig, RuntimeParams, per_row,
                                                 rows_params, truncated_sq_threshold)
@@ -70,6 +81,29 @@ from progressivex_tpu_torch.ops.scoring import (
 
 _NEG = -1e30
 _F32 = np.float32
+
+# The live-progress consumer (cfg.live_progress): a callable taking one
+# dict a row and round, {"round", "accepted", "inliers", "tanimoto",
+# "score", "energy", "n_active", "labels"}. The API layer sets it for the
+# length of a call (api.find* progress_callback), as the JAX package does;
+# not thread-safe.
+LIVE_CALLBACK = None
+
+
+def _emit_progress(rounds, stats, labels):
+    """One event a row: rounds [R] before this pass, the round's
+    statistics ([R] each) and labels [R, N], read to the host at once."""
+    cb = LIVE_CALLBACK
+    if cb is None:
+        return
+    rounds, accepted, inliers, tan, score, energy, n_active = (
+        t.cpu().numpy() for t in (rounds, *stats))
+    labels = labels.cpu().numpy()
+    for r in range(rounds.shape[0]):
+        cb({"round": int(rounds[r]), "accepted": bool(accepted[r]),
+            "inliers": int(inliers[r]), "tanimoto": float(tan[r]),
+            "score": float(score[r]), "energy": float(energy[r]),
+            "n_active": int(n_active[r]), "labels": labels[r]})
 
 
 class FitState(NamedTuple):
@@ -249,9 +283,10 @@ def _round(family, cfg, params, data, pmask, pweights, idx, samp_ok,
     trunc_sq = truncated_sq_threshold(params.threshold)  # [R]
     has_compound = state.active.any(-1)
 
-    desc, score, prop_valid, r2_best, samples_drawn = _proposal(
-        family, cfg, params, data, pmask, pweights, idx, samp_ok, idx_ext,
-        ok_ext, adj, state.compound_pref, has_compound)
+    with record_function("progx_proposal"):
+        desc, score, prop_valid, r2_best, samples_drawn = _proposal(
+            family, cfg, params, data, pmask, pweights, idx, samp_ok, idx_ext,
+            ok_ext, adj, state.compound_pref, has_compound)
 
     # validation (progressive_x.h:565-591), inliers at the raw threshold
     pref_p = truncated_preference(r2_best, trunc_sq) * pmask
@@ -281,8 +316,9 @@ def _round(family, cfg, params, data, pmask, pweights, idx, samp_ok,
     labels = torch.where(first[:, None], first_labels, state.labels)
     energy = state.energy
     if bool(run_pearl.any()):
-        pres = pearl_run(family, cfg, params, data, pmask, pweights, descs,
-                         active, state.labels, adj)
+        with record_function("progx_pearl"):
+            pres = pearl_run(family, cfg, params, data, pmask, pweights, descs,
+                             active, state.labels, adj)
         descs = torch.where(run_pearl[:, None, None], pres.descs, descs)
         active = torch.where(run_pearl[:, None], pres.active, active)
         labels = torch.where(run_pearl[:, None], pres.labels, labels)
@@ -313,7 +349,6 @@ def _round(family, cfg, params, data, pmask, pweights, idx, samp_ok,
 
 def _check_slice(cfg: EngineConfig):
     later = {
-        "live_progress": cfg.live_progress,
         "neighborhood": cfg.neighborhood != "knn",
         "hyp_axis": cfg.hyp_axis is not None,
     }
@@ -381,13 +416,14 @@ def fit_rows(family: ModelFamily, cfg: EngineConfig, params: RuntimeParams, data
         data, gd = sort(data), sort(gd)
         point_mask, point_weights = point_mask.gather(1, perm), point_weights.gather(1, perm)
 
-    samp_idx, samp_mask = knn_graph(gd, point_mask, params.neighborhood_radius,
-                                    max(cfg.knn_k, cfg.sampler_k))
-    knn_idx, knn_mask = samp_idx[..., :cfg.knn_k], samp_mask[..., :cfg.knn_k]
-    if use_band:
-        adj = adjacency_banded(knn_idx, knn_mask, cfg.potts_band)
-    else:
-        adj = adjacency_from_knn(knn_idx, knn_mask)
+    with record_function("progx_graph"):
+        samp_idx, samp_mask = knn_graph(gd, point_mask, params.neighborhood_radius,
+                                        max(cfg.knn_k, cfg.sampler_k))
+        knn_idx, knn_mask = samp_idx[..., :cfg.knn_k], samp_mask[..., :cfg.knn_k]
+        if use_band:
+            adj = adjacency_banded(knn_idx, knn_mask, cfg.potts_band)
+        else:
+            adj = adjacency_from_knn(knn_idx, knn_mask)
 
     n_sub = max(int(cfg.n_subbatches), 1)
     if presampled is None:
@@ -395,8 +431,9 @@ def fit_rows(family: ModelFamily, cfg: EngineConfig, params: RuntimeParams, data
             raise ValueError("fit needs a torch.Generator or presampled samples")
         if len(generators) != n_rows:
             raise ValueError(f"{len(generators)} generators for {n_rows} rows")
-        presampled = _draw(generators, cfg, family, n_valid_host, samp_idx,
-                           samp_mask, n_sub)
+        with record_function("progx_sampling"):
+            presampled = _draw(generators, cfg, family, n_valid_host, samp_idx,
+                               samp_mask, n_sub)
     idx_all, ok_all, idx_ext, ok_ext = (t.to(dev) for t in presampled)
     idx_all, idx_ext = idx_all.long(), idx_ext.long()
     if cfg.sampler_id == 1 and rank is not None:
@@ -440,6 +477,8 @@ def _fit_prepared(family, cfg, params, data, point_mask, point_weights, adj,
         new_state, stats = _round(family, cfg, params, data, point_mask,
                                   point_weights, idx_all[:, rnd], ok_all[:, rnd],
                                   idx_ext, ok_ext, adj, state)
+        if cfg.live_progress:
+            _emit_progress(rounds_run, stats, new_state.labels)
         live = ~state.done  # rows that were done keep their state and log
         for col, v in zip(log, stats):
             col[:, rnd] = torch.where(live, v.to(col.dtype), col[:, rnd])

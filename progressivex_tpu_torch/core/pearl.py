@@ -19,6 +19,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from progressivex_tpu_torch.core.config import (EngineConfig, RuntimeParams, per_row,
                                                 rows_params, truncated_sq_threshold)
@@ -95,9 +96,10 @@ def pearl_run(
         active0, labels0 = active, labels
 
         # 1. labeling, started from the per-point data argmin
-        dcost = labeling_ops.data_costs(r2, active, point_mask, w, trunc_sq)
-        labels, energy = labeling_ops.icm_sweeps(
-            dcost, dcost.argmin(-2), adj, w, cfg.icm_sweeps)
+        with record_function("progx_labeling"):
+            dcost = labeling_ops.data_costs(r2, active, point_mask, w, trunc_sq)
+            labels, energy = labeling_ops.icm_sweeps(
+                dcost, dcost.argmin(-2), adj, w, cfg.icm_sweeps)
 
         # 2. per-instance refit: two IRLS passes, truncated-sum acceptance
         member = (labels[:, None, :] == slot_ids[:, None]) & point_mask[:, None, :]  # [R, K, N]
@@ -107,12 +109,14 @@ def pearl_run(
         def trunc_sum(r2m):
             return row_sum(member * torch.sqrt(torch.minimum(r2m, cap)))
 
-        new_descs, fit_ok = family.refit(data, fit_w * _pref(r2, tau), descs)
-        r2_mid = family.squared_residual(data, new_descs)
+        with record_function("progx_refit"):
+            new_descs, fit_ok = family.refit(data, fit_w * _pref(r2, tau), descs)
+            r2_mid = family.squared_residual(data, new_descs)
         res_before = trunc_sum(r2)
         res_one = torch.where(fit_ok, trunc_sum(r2_mid), float("inf"))
-        descs2, ok2 = family.refit(data, fit_w * _pref(r2_mid, tau), new_descs)
-        r2_two = family.squared_residual(data, descs2)
+        with record_function("progx_refit"):
+            descs2, ok2 = family.refit(data, fit_w * _pref(r2_mid, tau), new_descs)
+            r2_two = family.squared_residual(data, descs2)
         res_two = torch.where(fit_ok & ok2, trunc_sum(r2_two), float("inf"))
         use_two = res_two < res_one
         new_descs = torch.where(use_two[..., None], descs2, new_descs)

@@ -277,6 +277,24 @@ def nullspace_exact(A, n_free: int):
     return basis, valid
 
 
+def orthonormalize_rows(basis, valid):
+    """Modified Gram-Schmidt over the rows of small bases basis [..., f, c]
+    (progressivex_tpu/ops/linalg.py:353-378, which says why the five-point
+    solver needs it). Returns (orthonormal basis, valid & every row's
+    remainder norm > 1e-6). The dot products and norms are elementwise
+    products summed by `row_sum`, so a row's bits do not depend on the
+    batch."""
+    rows = []
+    for i in range(basis.shape[-2]):
+        v = basis[..., i, :]
+        for u in rows:
+            v = v - row_sum(v * u)[..., None] * u
+        n = torch.sqrt(row_sum(v * v))
+        valid = valid & (n > 1e-6)
+        rows.append(v / torch.clamp(n, min=_EPS)[..., None])
+    return torch.stack(rows, -2), valid
+
+
 def smallest_eigvec_psd(M, iters: int = 6):
     """Eigenvector of the smallest eigenvalue of small symmetric PSD
     matrices M [..., n, n] by shifted inverse iteration with the unrolled

@@ -229,25 +229,27 @@ FRONT_ENDS = [
     (api.findLines, japi.findLines),
     (api.findVanishingPoints, japi.findVanishingPoints),
     (api.find6DPoses, japi.find6DPoses),
+    (api.findEssentialMatrices, japi.findEssentialMatrices),
     (api_batch.findHomographiesBatched, japi_batch.findHomographiesBatched),
     (api_batch.findTwoViewMotionsBatched, japi_batch.findTwoViewMotionsBatched),
     (api_batch.findLinesBatched, japi_batch.findLinesBatched),
     (api_batch.findVanishingPointsBatched, japi_batch.findVanishingPointsBatched),
     (api_batch.find6DPosesBatched, japi_batch.find6DPosesBatched),
+    (api_batch.findEssentialMatricesBatched, japi_batch.findEssentialMatricesBatched),
 ]
 
 
 @pytest.mark.parametrize("port_fn, jax_fn", FRONT_ENDS, ids=lambda f: f.__name__)
 def test_front_end_keywords_match_jax(port_fn, jax_fn):
-    """The same keyword names and defaults as the JAX function; `device`
-    is the only extra one, and `progress_callback` (the live progress of a
-    later slice) the only one missing."""
+    """The same keyword names and defaults as the JAX function, over all
+    twelve front ends; `device` is the only extra one, and none is
+    missing."""
     def kws(fn):
         return {name: p.default for name, p in inspect.signature(fn).parameters.items()}
 
     got, want = kws(port_fn), kws(jax_fn)
     assert set(got) - set(want) == {"device"}
-    assert set(want) - set(got) <= {"progress_callback"}
+    assert set(want) - set(got) == set()
     for name in set(got) & set(want):
         assert got[name] == want[name], name
     assert got["device"] is None

@@ -1,5 +1,6 @@
 """The port's CUDA scoring kernels on the card (homography and
-fundamental), against their plain torch versions on the same CUDA tensors.
+fundamental, the latter also at the essential path's shapes), against
+their plain torch versions on the same CUDA tensors.
 
 These tests need a CUDA device and nvcc. They import neither JAX nor the
 JAX package, so that they also run where JAX is not installed:
@@ -22,7 +23,7 @@ import pytest
 import torch
 
 from progressivex_tpu_torch.kernels import scoring as kscoring
-from progressivex_tpu_torch.models import fundamental, homography
+from progressivex_tpu_torch.models import essential, fundamental, homography
 
 TRUNC_SQ, EXPONENT = 25.0, 2.0
 
@@ -344,3 +345,84 @@ def test_one_row_matches_the_kernel_before_rows(cuda):
                     np.testing.assert_array_equal(
                         g[0].cpu().numpy(), want,
                         err_msg=f"case {c} {family} [{b}, {n}] m={m} has={has} {name}")
+
+
+def _essential_rows(dev, rows, b=4090, n=512, n_valid=400, seed=0):
+    """The essential path's shapes: `rows` rows (restarts, or lanes x
+    restarts) of B = 409 five-point samples x 10 solutions on a
+    calibrated two-motion scene of n_valid correspondences padded to n,
+    at the threshold 1.5 / 800 (trunc_sq about 7.9e-6, residuals near
+    1e-7). Returns ((data, descs, compound, pmask), trunc_sq, has)."""
+    r = np.random.default_rng(seed)
+    pts = []
+    for motion in range(2):
+        X = r.uniform(-1, 1, (n_valid // 4, 3)) + np.array([0.5 * motion, 0, 4.0])
+        ax = r.normal(size=3) * 0.2
+        K = np.array([[0, -ax[2], ax[1]], [ax[2], 0, -ax[0]], [-ax[1], ax[0], 0]])
+        R = np.eye(3) + K + 0.5 * K @ K
+        Xc = X @ R.T + r.uniform(-0.3, 0.3, 3)
+        pts.append(np.concatenate([X[:, :2] / X[:, 2:], Xc[:, :2] / Xc[:, 2:]], 1))
+    pts.append(r.uniform(-0.4, 0.4, (n_valid // 2, 4)))
+    data = torch.zeros(n, 4)
+    data[:n_valid] = torch.as_tensor(np.concatenate(pts)[r.permutation(n_valid)],
+                                     dtype=torch.float32)
+    pmask = torch.arange(n) < n_valid
+    idx = torch.as_tensor(r.integers(0, n_valid // 2, (b, 5)))
+    descs, valid = essential._minimal_batched(data[idx])
+    descs = torch.where(valid.reshape(-1)[:, None], descs.reshape(-1, 9),
+                        descs.reshape(-1, 9)[0])
+    descs = descs[torch.isfinite(descs).all(1)]
+    descs = descs[torch.arange(b) % len(descs)]
+    stacked = [t[None].repeat(rows, *([1] * t.ndim)).to(dev).contiguous() for t in (
+        data, descs, torch.as_tensor(r.uniform(0, 1, n), dtype=torch.float32), pmask)]
+    trunc_sq = torch.full((rows,), float((1.5 * 1.5 / 800.0) ** 2), device=dev)
+    has = torch.arange(rows, device=dev) % 2 == 0
+    return stacked, trunc_sq, has
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [3, 12])
+@pytest.mark.parametrize("magsac_levels", [0, 4])
+def test_fundamental_kernel_at_essential_shapes(cuda, rows, magsac_levels):
+    """score_fundamental on E descriptors at [3 x 4090, 512] (one scene,
+    three restarts) and [12 x 4090, 512] (four scenes): inliers exact,
+    the rest within the F cases' tolerance."""
+    (data, descs, compound, pmask), trunc_sq, has = _essential_rows(cuda, rows)
+    got = kscoring.score_fundamental_cuda(data, descs, compound, pmask, trunc_sq, 2.0,
+                                          has, magsac_levels)
+    torch.cuda.synchronize()
+    assert int(got[1].max()) > 50  # the scale holds inliers
+    for r in (0, rows - 1):
+        want = kscoring.score_fundamental_plain(data[r], descs[r], compound[r], pmask[r],
+                                                trunc_sq[r], 2.0, has[r], magsac_levels)
+        _check([g[r] for g in got], want)
+
+
+@pytest.mark.cuda
+def test_essential_nan_rows_are_harmless(cuda):
+    """Rows of NaN and inf descriptors, as an invalid five-point solution
+    can give: every other row's outputs are bit for bit those without
+    them and match the plain version; the kernel's score of a bad row may
+    be finite where the plain version's is NaN (fmaxf drops a NaN), so
+    the engine's mask (the solver's valid flag, a finite score) decides,
+    and it gives the plain version's verdict."""
+    (data, descs, compound, pmask), trunc_sq, has = _essential_rows(cuda, 3)
+    bad = torch.zeros(3, 4090, dtype=torch.bool, device=cuda)
+    bad[0, [7, 100, 2000]] = True
+    bad[1, -1] = True
+    bad[2, :64] = True
+    descs_bad = descs.clone()
+    descs_bad[0, [7, 100]] = float("nan")
+    descs_bad[0, 2000, 3] = float("inf")
+    descs_bad[1, -1, 0] = float("-inf")
+    descs_bad[2, :64, 4] = float("nan")
+    args = (compound, pmask, trunc_sq, 2.0, has, 4)
+    got = kscoring.score_fundamental_cuda(data, descs_bad, *args)
+    clean = kscoring.score_fundamental_cuda(data, descs, *args)
+    want = kscoring.score_fundamental_plain(data, descs_bad, *args)
+    ok = ~bad
+    for g, c in zip(got, clean):
+        assert torch.equal(g[ok], c[ok])
+    _check([g[ok] for g in got], [w[ok] for w in want])
+    valid = ok  # a non-finite E is never valid (models/essential._minimal_batched)
+    assert torch.equal(valid & torch.isfinite(got[0]), valid & torch.isfinite(want[0]))

@@ -5,9 +5,10 @@
 For each bundled AdelaideRMF scene of both protocols (H:
 findHomographies under H_PROTOCOL; F: findTwoViewMotions under
 F_PROTOCOL), the synthetic lines scene (L: findLines, 3180 points), the
-synthetic VP scene (V: findVanishingPoints, 216 segments) and the bundled
-T-LESS scene (P: find6DPoses), seed 0, at the keywords of
-eval/adelaide.scene_kwargs and eval/extras, runs one fit without the
+synthetic VP scene (V: findVanishingPoints, 216 segments), the bundled
+T-LESS scene (P: find6DPoses) and the two-motion essential gauntlet scene
+of seed 0 (E: findEssentialMatrices, 400 correspondences, 3 restarts),
+seed 0, at the keywords of eval/adelaide.scene_kwargs and eval/extras, runs one fit without the
 profiler (wall seconds) and one under torch.profiler (CPU + CUDA
 activities), and reports the number of device operations (kernels,
 copies, sets), their summed device time, the device's busy share of the
@@ -34,7 +35,6 @@ def main():
     args = ap.parse_args()
 
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
@@ -44,6 +44,7 @@ def main():
     from progressivex_tpu_torch.eval.adelaide import scene_kwargs
     from progressivex_tpu_torch.io.data import (ADELAIDE_F_SCENES, ADELAIDE_H_SCENES,
                                                 load_corr_scene, load_tless_scene)
+    from progressivex_tpu_torch.io.profiling import device_operations
     from progressivex_tpu_torch.kernels.scoring import LAUNCHES
 
     def adelaide(problem, scene):
@@ -60,6 +61,9 @@ def main():
               lambda s: ((extras.make_vp_scene(seed=0)[0],), extras.VP_KW)),
         "P": (px.find6DPoses, ("tless",),
               lambda s: (load_tless_scene()[:3], extras.TLESS_KW)),
+        "E": (px.findEssentialMatrices, ("two-0",),
+              lambda s: ((extras.gauntlet_scene("two", 0)[0], extras.gauntlet_camera(),
+                          extras.gauntlet_camera()), extras.ESSENTIAL_KW)),
     }
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -84,8 +88,9 @@ def main():
                 wall_prof = time.perf_counter() - t0
             # The raw kineto events: building the profiler's event tree for
             # the 10^5-10^6 host and device events of one fit takes minutes.
-            dev_events = [e for e in prof.profiler.kineto_results.events()
-                          if e.device_type() == DeviceType.CUDA]
+            # The engine's phase annotations also show on the device
+            # timeline; they are not device operations.
+            dev_events = device_operations(prof.profiler.kineto_results.events())
             busy_us = sum(e.duration_ns() for e in dev_events) / 1e3
             by_name = collections.Counter()
             counts = collections.Counter()
