@@ -5,7 +5,9 @@
 
 Phases, each of which raises on failure:
   1. prints the card (nvidia-smi) and builds the CUDA kernels from csrc/,
-     one nvcc per source, all at once;
+     one nvcc per source, all at once; writes the synthetic 19 H + 18 F
+     scene datasets under build/synth and checks their bytes against the
+     files the JAX package's reference ran on;
   2. holds each kernel (score_homography, score_fundamental) against its
      plain torch version on the card at its path's shapes, and times both
      beside the launch floor (one one-element kernel, timed the same way);
@@ -18,10 +20,8 @@ Phases, each of which raises on failure:
      T-LESS scene at seeds 0, 1 and 2 (these three reach no kernel in the
      JAX package and launch none here); checks each scene's
      misclassification against the JAX package's, and T-LESS's mean pose
-     errors against tests/test_pose6d.py's anchors;
-  4. fits one scene of the H, F, line and VP paths on the card and on the
-     CPU and compares them;
-     Then findEssentialMatrices on the essential gauntlet's scenes
+     errors against tests/test_pose6d.py's anchors; then
+     findEssentialMatrices on the essential gauntlet's scenes
      (tests/test_gauntlet.py: two motions at seeds 0-2, three motions at
      seed 1, three restarts), scored by the fundamental kernel, against
      the gauntlet's gates, beside the JAX package's CPU ME;
@@ -38,11 +38,21 @@ Phases, each of which raises on failure:
      essential bench line (`eval/extras.bench_essential`);
   6. runs every single-scene front end once with a progress callback and
      with_statistics="phases": the callback fires on the card, and
-     phase_times holds the JAX package's keys with device time in it.
+     phase_times holds the JAX package's keys with device time in it;
+  7. the dataset pass (eval/adelaide.throughput_all) over the synthetic
+     datasets at every bucket (H at 256 to 2304 points, F at 256 and 384,
+     restarts as rows), the launch counts set to 0 just before it and
+     read after: 19 and 18 scenes, mean ME under 0.08 and the JAX
+     package's CPU mean + ME_SLACK; a grid neighborhood fit on the card
+     against the CPU; the merge and split moves of a batched essential
+     call and of the 2304 bucket under
+     torch.cuda.set_sync_debug_mode("warn"), timed, with every
+     synchronization printed (none may come from core/pearl.py).
 Phase 2 also holds each kernel against its plain version over rows, at
 the shapes the batched front ends give it, and score_fundamental at the
 essential path's shapes (restarts as rows, 409 five-point samples x 10
-solutions), with rows of NaN and inf descriptors among them.
+solutions), with rows of NaN and inf descriptors among them, and both
+kernels at the dataset pass's shapes.
 Each phase prints its seconds. It ends with the total seconds, a
 {"kernels": [...]} line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. It needs a CUDA device and the package
@@ -139,6 +149,25 @@ JAX_E_MISSES = {"two-0": "1/10", "two-1": "0/10", "two-2": "1/10", "three-1": "4
 E_PRINTED_ONLY = ("three-1",)
 # The scene of phase 4's card-against-CPU comparison.
 E_CARD_VS_CPU = "two-1"
+# The dataset pass (phase 7) on the synthetic full-cardinality datasets of
+# eval/synth_adelaide (19 H and 18 F scenes, seed 0), written under
+# build/synth beside this script; SYNTH_DIGEST is the SHA-256 of their
+# files (_synth_digest), which the run checks before it compares. The JAX
+# package's mean misclassification on the same files, on the CPU, at
+# lane_target 1 and one timing run, from
+#   JAX_PLATFORMS=cpu PROGX_COMPILE_CACHE=0 python -c "import jax;
+#     jax.config.update('jax_platforms', 'cpu');
+#     from progressivex_tpu_torch.eval.synth_adelaide import ensure_synth_dataset as e;
+#     from progressivex_tpu.eval.adelaide import throughput_batch as t;
+#     [print(p, t(p, root=e(p, root='build/synth'), n_timing_runs=1,
+#                 lane_target=1).mean_me) for p in 'HF']"
+# Gate: mean ME <= SYNTH_ME_GATE (tests/test_full_protocol.py:41,54) and
+# <= the JAX package's + ME_SLACK.
+SYNTH_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "synth")
+SYNTH_DIGEST = "7842d19eb3d5e9bfd13b700f23b32ec4579f4a2110b27664fd6c593f3e0a3c47"
+SYNTH_SCENES = {"H": 19, "F": 18}
+JAX_CPU_ME_SYNTH = {"H": 0.003905216735107873, "F": 0.0381156596874729}
+SYNTH_ME_GATE = 0.08
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s
 # outside the tensor cores.
@@ -238,20 +267,28 @@ def _scene_tensors(torch, dev, scene, rng):
     calibrated coordinates findEssentialMatrices fits (400
     correspondences, pad 512); SYNTHETIC is made here: 7000 correspondences of three
     homographies near the identity (0.5 px noise) and 30% outliers in a
-    1000 px square, padded to the largest pad level, 7680."""
+    1000 px square, padded to the largest pad level, 7680. "synthH:name"
+    and "synthF:name" are scenes of the synthetic datasets, padded to
+    their bucket of the dataset pass."""
     from progressivex_tpu_torch.api import _pad_to, essential_inputs
+    from progressivex_tpu_torch.eval.adelaide import _bucket_size
     from progressivex_tpu_torch.eval.extras import gauntlet_camera, gauntlet_scene
     from progressivex_tpu_torch.io.data import load_corr_scene
 
+    pad = _pad_to
     if scene == SYNTHETIC:
         corrs = _synthetic_corrs(rng, 7000)
     elif scene.startswith("essential-"):
         K = gauntlet_camera()
         pixels, _ = gauntlet_scene("two", int(scene.partition("-")[2]))
         corrs = essential_inputs(pixels, K, K, 1.0)[0]
+    elif scene.startswith("synth"):
+        problem, _, name = scene[5:].partition(":")
+        corrs, _ = load_corr_scene(name, root=_synth_roots()[problem])
+        pad = _bucket_size
     else:
         corrs, _ = load_corr_scene(scene)
-    n, n_pad = len(corrs), _pad_to(len(corrs))
+    n, n_pad = len(corrs), pad(len(corrs))
     data = torch.zeros(n_pad, 4, dtype=torch.float32, device=dev)
     data[:n] = torch.as_tensor(corrs, dtype=torch.float32, device=dev)
     pmask = torch.arange(n_pad, device=dev) < n
@@ -261,6 +298,53 @@ def _scene_tensors(torch, dev, scene, rng):
 
 
 SYNTHETIC = "synthetic-7680"
+
+
+def _synth_roots():
+    """{problem: directory} of the synthetic datasets, made once."""
+    from progressivex_tpu_torch.eval.synth_adelaide import ensure_synth_dataset
+
+    return {p: ensure_synth_dataset(p, root=SYNTH_ROOT) for p in "HF"}
+
+
+def _synth_digest(roots):
+    """SHA-256 over the synthetic datasets' scene names and file bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in "HF":
+        for name in sorted(os.listdir(roots[p])):
+            h.update(name.encode())
+            with open(os.path.join(roots[p], name, f"{name}.txt"), "rb") as f:
+                h.update(f.read())
+    return h.hexdigest()
+
+
+def _synth_plan():
+    """[(problem, LaneBatch, scene names)] of the dataset pass at lane
+    target 1 (eval/adelaide.lane_plan)."""
+    from progressivex_tpu_torch.eval.adelaide import discover_scenes, lane_plan
+    from progressivex_tpu_torch.io.data import load_corr_scene
+
+    out = []
+    for problem, root in _synth_roots().items():
+        _, names, _ = discover_scenes(problem, root)
+        sizes = [len(load_corr_scene(n, root=root)[1]) for n in names]
+        for batch in lane_plan(problem, sizes, 1):
+            out.append((problem, batch, [f"synth{problem}:{names[i]}" for i in batch.scenes]))
+    return out
+
+
+def phase_synth_data():
+    """The synthetic datasets under build/synth, the same bytes as the
+    files the JAX package's CPU reference ran on."""
+    roots = _synth_roots()
+    digest = _synth_digest(roots)
+    print("synthetic datasets", json.dumps({"roots": roots, "sha256": digest}), flush=True)
+    if digest != SYNTH_DIGEST:
+        raise AssertionError(f"synthetic datasets differ from the reference's files: "
+                             f"{digest} != {SYNTH_DIGEST}")
+    return roots
 
 
 def _synthetic_corrs(rng, n):
@@ -503,7 +587,10 @@ def phase_kernel(torch, dev):
     (unihouse), F [16 x 1536, 256] (book, breadcube, cubetoy and a
     replica: 4 lanes x 4 restarts); and F's kernel at the essential
     path's shapes, [3 x 4090, 512] alone and [12 x 4090, 512] batched,
-    with a case of NaN and inf descriptor rows."""
+    with a case of NaN and inf descriptor rows; then both kernels at the
+    dataset pass's shapes: H [8 x 256, 256], [1 x 256, 384 | 512 | 768 |
+    1536] and [4 x 256, 2304] on the synthetic H buckets' scenes, F
+    [64 x 1536, 256 | 384] (16 lanes x 4 restarts)."""
     from progressivex_tpu_torch.core.config import truncated_sq_threshold
 
     rng = np.random.default_rng(0)
@@ -536,7 +623,19 @@ def phase_kernel(torch, dev):
                             tuple(f"essential-{s}" for s in range(4)), 3, 4090,
                             tau_e, 2.0, rng, "essential"))
     essential.append(_nan_rows_case(torch, dev, tau_e, rng))
-    return out, rows, essential
+    # The dataset pass's shapes (phase 7, lane target 1): every bucket's
+    # rows of its own scenes, replicated cyclically to the lanes.
+    synth = {"score_homography": [], "score_fundamental": []}
+    for problem, batch, names in _synth_plan():
+        lanes = tuple(names[j % len(names)] for j in range(batch.lanes))
+        if problem == "H":
+            synth["score_homography"] += _row_kernel_cases(
+                torch, dev, "score_homography", lanes, 1, 256, 36.0, 2.0, rng)
+        else:
+            synth["score_fundamental"] += _row_kernel_cases(
+                torch, dev, "score_fundamental", lanes, batch.n_restarts, 1536,
+                tau_f, 1.0, rng)
+    return out, rows, essential, synth
 
 
 PATHS = {
@@ -1215,6 +1314,165 @@ def phase_progress_and_phases(torch):
     return out
 
 
+def phase_dataset_pass(torch):
+    """`eval/adelaide.throughput_all` over the synthetic 19 H and 18 F
+    scene datasets on the card (lane target 1, two timing runs), the
+    launch counts set to 0 just before it and read just after: every
+    scene covered, full_dataset true, each bucket printed with its pad
+    level, lanes, rows, best seconds and kernel launches (both kernels
+    must have run), mean ME at or under SYNTH_ME_GATE and the JAX
+    package's CPU mean + ME_SLACK."""
+    from progressivex_tpu_torch.eval.adelaide import throughput_all
+    from progressivex_tpu_torch.kernels.scoring import LAUNCHES
+
+    _zero_launches()
+    t0 = time.perf_counter()
+    out, warm_s = throughput_all("HF", root=_synth_roots(), n_timing_runs=2,
+                                 lane_target=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    failures, res = [], {"wall_s": wall, "warm_up_s": warm_s, "launches": launches}
+    for problem, r in out.items():
+        kernel = PATHS[problem][1]
+        for b in r.buckets:
+            print("dataset pass bucket", json.dumps(dict(b, problem=problem)), flush=True)
+            if b["launches"] <= 0:
+                failures.append(f"{problem} bucket {b['n_pad']}: no kernel launch")
+        limit = min(SYNTH_ME_GATE, JAX_CPU_ME_SYNTH[problem] + ME_SLACK)
+        res[problem] = {
+            "n_distinct": r.n_distinct, "n_scenes": r.n_scenes,
+            "full_dataset": r.full_dataset, "mean_me": r.mean_me,
+            "jax_cpu_mean_me": JAX_CPU_ME_SYNTH[problem], "limit": limit,
+            "pass_seconds": r.pass_seconds, "scenes_per_sec": r.scenes_per_sec}
+        if launches[kernel] <= 0:
+            failures.append(f"dataset pass {problem}: {kernel} never launched")
+        if r.n_distinct != SYNTH_SCENES[problem] or not r.full_dataset:
+            failures.append(f"dataset pass {problem}: {r.n_distinct} scenes, "
+                            f"full_dataset {r.full_dataset}")
+        if not r.mean_me <= limit:
+            failures.append(f"dataset pass {problem}: mean ME {r.mean_me} above {limit}")
+    print("dataset pass", json.dumps(res), flush=True)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return res
+
+
+def phase_grid(torch):
+    """One H scene (oldclassicswing, padded to 384) through engine.fit with
+    neighborhood="grid" (the H protocol's radius, 200, as the cell width)
+    on the card and on the CPU from the same generator seed: the kernel
+    ran on the card, the same number of models, labels apart on at most
+    LABEL_DISAGREEMENT_MAX of the points."""
+    from progressivex_tpu_torch.api import _pad_to
+    from progressivex_tpu_torch.core import engine
+    from progressivex_tpu_torch.core.config import EngineConfig, make_params
+    from progressivex_tpu_torch.io.data import load_corr_scene
+    from progressivex_tpu_torch.io.metrics import misclassification
+    from progressivex_tpu_torch.kernels.scoring import LAUNCHES
+    from progressivex_tpu_torch.models import get_family
+
+    corrs, gt = load_corr_scene("oldclassicswing")
+    n, n_pad = len(corrs), _pad_to(len(corrs))
+    data = np.zeros((n_pad, 4), np.float32)
+    data[:n] = corrs
+    cfg = EngineConfig(family="homography", n_hypotheses=256, sampler_id=3,
+                       magsac_levels=4, final_relabel=2, pearl_iters=2,
+                       neighborhood="grid")
+    params = make_params(threshold=4.0, confidence=0.5, spatial_weight=0.05,
+                         neighborhood_radius=200.0, max_tanimoto=0.4, min_inliers=10,
+                         max_models=6, scoring_exponent=2.0, n_valid=n)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        _zero_launches()
+        fit = engine.fit(get_family("homography"), cfg, params,
+                         torch.from_numpy(data).to(dev),
+                         (torch.arange(n_pad) < n).to(dev),
+                         (torch.arange(n_pad) < n).float().to(dev),
+                         generator=torch.Generator().manual_seed(0))
+        descs, labels = engine.compact_result(fit, n)
+        out[dev] = (descs.shape[0], labels, dict(LAUNCHES))
+    k = out["cuda"][0]
+    same_k = out["cpu"][0] == k
+    disagreement = _label_disagreement(out["cpu"][1], out["cuda"][1], k) if same_k else 1.0
+    res = {"scene": "oldclassicswing", "n_models_cuda": k, "n_models_cpu": out["cpu"][0],
+           "me_cuda": float(misclassification(out["cuda"][1], gt)),
+           "me_cpu": float(misclassification(out["cpu"][1], gt)),
+           "label_disagreement": disagreement,
+           "launches": out["cuda"][2]["score_homography"]}
+    print("grid neighborhood", json.dumps(res), flush=True)
+    if res["launches"] <= 0:
+        raise AssertionError("grid fit: score_homography never launched")
+    if not same_k or disagreement > LABEL_DISAGREEMENT_MAX:
+        raise AssertionError(f"grid fit: card and CPU differ: {res}")
+    return res
+
+
+def phase_moves_sync(torch):
+    """The row-axis split and merge moves of two batched calls, each move
+    run under torch.cuda.set_sync_debug_mode("warn") and timed on the card
+    (synchronized before and after): findEssentialMatricesBatched on the
+    two-motion gauntlet scenes 0-3 (12 rows at 512 points, dense
+    adjacency, two split rounds) and findHomographiesBatched on the
+    synthetic 2304 bucket (banded adjacency, one split round). Prints
+    every synchronization with its source line; fails if one comes from
+    core/pearl.py, the moves' own code."""
+    import warnings
+
+    import progressivex_tpu_torch
+    from progressivex_tpu_torch.core import engine
+    from progressivex_tpu_torch.eval import extras
+    from progressivex_tpu_torch.eval.adelaide import scene_kwargs
+    from progressivex_tpu_torch.io.data import load_corr_scene
+
+    syncs, times = {}, []
+    moves = {"split_instances": engine.split_instances,
+             "merge_instances": engine.merge_instances}
+
+    def watched(name, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out = fn(*args, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            times.append({"move": name, "rows": int(args[3].shape[0]),
+                          "points": int(args[3].shape[1]),
+                          "seconds": time.perf_counter() - t0})
+            for w in caught:
+                if "synchroniz" in str(w.message):
+                    site = f"{os.path.relpath(w.filename)}:{w.lineno}"
+                    syncs[site] = syncs.get(site, 0) + 1
+            return out
+        return run
+
+    K = extras.gauntlet_camera()
+    gauntlet = [extras.gauntlet_scene("two", s)[0] for s in range(4)]
+    synth = _synth_roots()["H"]
+    big = [load_corr_scene(n, root=synth)[0] for n in ("bonhall", "johnssonb", "unihouse")]
+    try:
+        for name, fn in moves.items():
+            setattr(engine, name, watched(name, fn))
+        progressivex_tpu_torch.findEssentialMatricesBatched(
+            gauntlet, K, K, **extras.ESSENTIAL_KW, **E_BATCHED_KW, random_seed=0)
+        progressivex_tpu_torch.findHomographiesBatched(
+            big, **scene_kwargs(2084, "H"), random_seed=0)
+    finally:
+        for name, fn in moves.items():
+            setattr(engine, name, fn)
+    res = {"moves": times, "synchronizations": syncs}
+    print("moves sync", json.dumps(res), flush=True)
+    own = {k: v for k, v in syncs.items() if "core/pearl.py" in k}
+    if own:
+        raise AssertionError(f"the moves synchronize with the host: {own}")
+    return res
+
+
 FAILURES = []
 
 
@@ -1279,6 +1537,7 @@ def main():
         print(f"nvcc {name}:\n{log.strip()}", flush=True)
     dev = torch.device("cuda")
 
+    _timed("1 synth data", phase_synth_data)
     kernel_phase = _timed("2 kernels", phase_kernel, torch, dev)
     results = {p: _timed(f"3 {p}", phase_main_path, torch, p) for p in ("H", "F")}
     new = {p: _timed(f"3 {p}", phase_new_path, torch, p) for p in ("L", "V")}
@@ -1298,26 +1557,33 @@ def main():
     bench = _timed("5 bench", phase_bench)
     bench_e = _timed("5 bench E", phase_bench_essential)
     _timed("6", phase_progress_and_phases, torch)
+    dataset_pass = _timed("7 pass", phase_dataset_pass, torch)
+    _timed("7 grid", phase_grid, torch)
+    _timed("7 sync", phase_moves_sync, torch)
     print(f"total seconds {time.perf_counter() - t_start:.3f}", flush=True)
     if FAILURES:
         _fail("; ".join(FAILURES))
 
-    kernel_cases, row_cases, essential_cases = kernel_phase
+    kernel_cases, row_cases, essential_cases, synth_cases = kernel_phase
     kernels = [
         _kernel_line("score_homography", *kernel_cases["score_homography"],
                      results["H"], [256, 2304],
                      "_score_kernel :91-126 + _homography_r2 :70-85",
-                     row_cases["score_homography"], batched["H"]),
+                     row_cases["score_homography"] + synth_cases["score_homography"],
+                     batched["H"]),
         _kernel_line("score_fundamental", *kernel_cases["score_fundamental"],
                      {**results["F"], **results["E"]}, [1536, 256],
                      "_score_kernel :91-126 + _sampson_r2 :51-67",
-                     row_cases["score_fundamental"] + essential_cases[:-1], batched["F"]),
+                     row_cases["score_fundamental"] + essential_cases[:-1]
+                     + synth_cases["score_fundamental"], batched["F"]),
     ]
     kernels[1].update({
         "launches_essential": sum(r["launches"] for r in results["E"].values()),
         "launches_essential_batched": batched["E"]["launches"],
         "max_abs_err": max(kernels[1]["max_abs_err"],
                            max(c["max_abs_err"] for c in essential_cases))})
+    for k in kernels:
+        k["launches_dataset_pass"] = dataset_pass["launches"][k["name"]]
     print("bench", json.dumps(bench), flush=True)
     print("bench essential", json.dumps(bench_e), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

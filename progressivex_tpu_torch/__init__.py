@@ -21,7 +21,10 @@ lines (`findLines`), vanishing points (`findVanishingPoints`) and 6D poses
 the engine's row axis, with live progress (`progress_callback`) and
 device time by phase (`with_statistics="phases"`). Lines, VPs and poses
 reach no kernel in the JAX package and are scored by plain torch on every
-device.
+device. The AdelaideRMF harness (`eval/adelaide`: protocols, dataset
+discovery, the bucketed dataset pass `throughput_all`) runs on the bundled
+scenes or on the synthetic full-cardinality datasets of
+`eval/synth_adelaide`; `cli` and `examples/` are its console entry points.
 """
 
 import torch as _torch

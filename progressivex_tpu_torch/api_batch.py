@@ -99,7 +99,13 @@ def _run_batched(
     mesh=None,
     n_devices=None,
     device=None,
+    pad_to=None,
+    lanes=None,
 ):
+    """The batched fit of `datas`, one `engine.fit_rows` call a pad level.
+    `pad_to` puts every scene in one given pad level and `lanes` sets its
+    lane count in place of the next power of two of the scene count: the
+    dataset harness's own bucket and lane plan (eval/adelaide)."""
     _check_mesh(mesh, n_devices)
     dev = resolve_device(device)
     n_scenes = len(datas)
@@ -137,21 +143,23 @@ def _run_batched(
 
     buckets: dict[int, list[int]] = {}
     for i, d in enumerate(datas):
-        buckets.setdefault(_api._pad_to(d.shape[0]), []).append(i)
+        buckets.setdefault(pad_to or _api._pad_to(d.shape[0]), []).append(i)
 
     results: list = [None] * n_scenes
     for n_pad in sorted(buckets):
         idxs = buckets[n_pad]
-        lanes = _next_pow2(len(idxs))
-        lane_ids = [idxs[j % len(idxs)] for j in range(lanes)]
+        n_lanes = int(lanes) if lanes else _next_pow2(len(idxs))
+        if n_lanes < len(idxs):
+            raise ValueError(f"{len(idxs)} scenes for {n_lanes} lanes")
+        lane_ids = [idxs[j % len(idxs)] for j in range(n_lanes)]
         d_dim = datas[idxs[0]].shape[1]
-        data = np.zeros((lanes, n_pad, d_dim), np.float32)
-        mask = np.zeros((lanes, n_pad), bool)
-        wts = np.zeros((lanes, n_pad), np.float32)
-        nv = np.zeros((lanes,), np.int64)
-        th = np.zeros((lanes,), np.float32)
+        data = np.zeros((n_lanes, n_pad, d_dim), np.float32)
+        mask = np.zeros((n_lanes, n_pad), bool)
+        wts = np.zeros((n_lanes, n_pad), np.float32)
+        nv = np.zeros((n_lanes,), np.int64)
+        th = np.zeros((n_lanes,), np.float32)
         gd = (None if graph_datas is None else
-              np.zeros((lanes, n_pad, graph_datas[idxs[0]].shape[1]), np.float32))
+              np.zeros((n_lanes, n_pad, graph_datas[idxs[0]].shape[1]), np.float32))
         for j, i in enumerate(lane_ids):
             n = datas[i].shape[0]
             data[j, :n] = datas[i]
@@ -173,17 +181,17 @@ def _run_batched(
                                          threshold=np.tile(th, n_restarts)),
             tile(data), tile(mask), tile(wts), generators=gens,
             graph_data=None if gd is None else tile(gd))
-        energy = res.energy.cpu().numpy().reshape(n_restarts, lanes)
-        nmod = res.n_models.cpu().numpy().reshape(n_restarts, lanes)
+        energy = res.energy.cpu().numpy().reshape(n_restarts, n_lanes)
+        nmod = res.n_models.cpu().numpy().reshape(n_restarts, n_lanes)
         for j, i in enumerate(lane_ids[:len(idxs)]):
             r = engine.select_restart(energy[:, j],
                                       restart_rule if n_restarts > 1 else "energy",
                                       nmod[:, j])
             results[i] = engine.compact_result(
-                engine.row_result(res, r * lanes + j), int(nv[j]))
+                engine.row_result(res, r * n_lanes + j), int(nv[j]))
         if do_logging:
             print(f"[progressivex_tpu_torch.batch] {family_name} n_pad={n_pad}: "
-                  f"{len(idxs)} scenes ({lanes} lanes x {n_restarts} restarts)",
+                  f"{len(idxs)} scenes ({n_lanes} lanes x {n_restarts} restarts)",
                   file=sys.stderr)
     return results
 

@@ -21,8 +21,8 @@ rows, and `select_restart` picks the winner on the host, as the JAX
 package vmaps restarts.
 
 After the rounds come the final moves, in the JAX package's order
-(progressivex_tpu/core/engine.py:967-1010): split, merge (row by row),
-`_final_polish`, `_polish_research` (both on the row axis), then the final
+(progressivex_tpu/core/engine.py:967-1010): split, merge,
+`_final_polish`, `_polish_research` (all on the row axis), then the final
 relabel. A fit may build its principal-axis sort and kNN graph on other
 coordinates than the model's (`graph_data`: the 6D-pose front ends' pixel
 and world rows).
@@ -61,10 +61,9 @@ from progressivex_tpu_torch.core.config import (EngineConfig, RuntimeParams, per
 from progressivex_tpu_torch.core.pearl import (_top_k, merge_instances, pearl_run,
                                                split_instances)
 from progressivex_tpu_torch.models.base import ModelFamily
-from progressivex_tpu_torch.ops.knn import knn_graph
+from progressivex_tpu_torch.ops.knn import grid_graph, knn_graph
 from progressivex_tpu_torch.ops.linalg import gram, row_sum
 from progressivex_tpu_torch.ops.labeling import (
-    adj_row,
     adjacency_banded,
     adjacency_from_knn,
     data_costs,
@@ -348,14 +347,11 @@ def _round(family, cfg, params, data, pmask, pweights, idx, samp_ok,
 
 
 def _check_slice(cfg: EngineConfig):
-    later = {
-        "neighborhood": cfg.neighborhood != "knn",
-        "hyp_axis": cfg.hyp_axis is not None,
-    }
-    unsupported = [k for k, v in later.items() if v]
-    if unsupported:
+    if cfg.neighborhood not in ("knn", "grid"):
+        raise ValueError(f"unknown neighborhood {cfg.neighborhood!r}")
+    if cfg.hyp_axis is not None:
         raise NotImplementedError(
-            f"EngineConfig options {unsupported} belong to later slices of the port")
+            "EngineConfig option hyp_axis belongs to a later slice of the port")
 
 
 def spatial_order(data, point_mask):
@@ -417,8 +413,12 @@ def fit_rows(family: ModelFamily, cfg: EngineConfig, params: RuntimeParams, data
         point_mask, point_weights = point_mask.gather(1, perm), point_weights.gather(1, perm)
 
     with record_function("progx_graph"):
-        samp_idx, samp_mask = knn_graph(gd, point_mask, params.neighborhood_radius,
-                                        max(cfg.knn_k, cfg.sampler_k))
+        # One call serves both neighborhoods: the first knn_k columns are
+        # the Potts graph, all of them the sampler's; under "grid" the
+        # radius is the cell width.
+        graph = grid_graph if cfg.neighborhood == "grid" else knn_graph
+        samp_idx, samp_mask = graph(gd, point_mask, params.neighborhood_radius,
+                                    max(cfg.knn_k, cfg.sampler_k))
         knn_idx, knn_mask = samp_idx[..., :cfg.knn_k], samp_mask[..., :cfg.knn_k]
         if use_band:
             adj = adjacency_banded(knn_idx, knn_mask, cfg.potts_band)
@@ -487,20 +487,12 @@ def _fit_prepared(family, cfg, params, data, point_mask, point_weights, adj,
         rounds_run = rounds_run + live
 
     descs, active, labels = state.descs, state.active, state.labels
-    if cfg.split_pass or cfg.merge_pass:
-        # Data-dependent candidate loops: one row at a time.
-        moved = []
-        for r in range(n_rows):
-            args = (family, cfg, params._replace(threshold=params.threshold[r],
-                                                 n_valid=params.n_valid[r]),
-                    data[r], point_mask[r], point_weights[r])
-            row = (descs[r], active[r], labels[r])
-            if cfg.split_pass:
-                row = split_instances(*args, *row, adj_row(adj, r), n_rounds=cfg.split_pass)
-            if cfg.merge_pass:
-                row = merge_instances(*args, *row, adj_row(adj, r))
-            moved.append(row)
-        descs, active, labels = (torch.stack(t) for t in zip(*moved))
+    moves = (family, cfg, params, data, point_mask, point_weights)
+    if cfg.split_pass:
+        descs, active, labels = split_instances(*moves, descs, active, labels, adj,
+                                                n_rounds=cfg.split_pass)
+    if cfg.merge_pass:
+        descs, active, labels = merge_instances(*moves, descs, active, labels, adj)
     if cfg.final_polish > 0:
         descs = _final_polish(family, cfg, params, data, point_mask, point_weights,
                               descs, active, labels)

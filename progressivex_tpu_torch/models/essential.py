@@ -61,6 +61,15 @@ _DEDUPE_DOT = 0.9999
 _STARTS_NP = np.random.default_rng(42).normal(size=(_N_STARTS, 4))
 _STARTS_NP /= np.linalg.norm(_STARTS_NP, axis=1, keepdims=True)
 _STARTS = _STARTS_NP.astype(np.float32)
+_STARTS_ON = {}  # device -> _STARTS there, copied once
+
+
+def _starts(dev):
+    """_STARTS as a tensor on `dev`, copied to a device once."""
+    t = _STARTS_ON.get(dev)
+    if t is None:
+        t = _STARTS_ON[dev] = torch.as_tensor(_STARTS, device=dev)
+    return t
 
 
 def _t(M):
@@ -99,7 +108,7 @@ def _constraints_and_jacobian(E, Ek):
     Ek [3, 3, 4, *lanes]."""
     A, tr, r = _constraint_parts(E)
     # The cofactor matrix, row i = (row i+1) x (row i+2): d det / dE.
-    cof = torch.linalg.cross(E[[1, 2, 0]], E[[2, 0, 1]], dim=1)
+    cof = torch.linalg.cross(E.roll(-1, 0), E.roll(1, 0), dim=1)  # rows [1, 2, 0], [2, 0, 1]
 
     e = E[:, :, None]  # against the k axis of Ek
     d_det = (cof[:, :, None] * Ek).sum((0, 1))  # [4, *lanes]
@@ -125,7 +134,7 @@ def _gauss_newton(Es):
     b, s = Es.shape[0], _N_STARTS
     dtype, dev = Es.dtype, Es.device
     Ek = Es.permute(2, 3, 1, 0)[..., None].expand(3, 3, 4, b, s).reshape(3, 3, 4, b * s)
-    q = torch.as_tensor(_STARTS, device=dev).to(dtype).T[:, None, :]
+    q = _starts(dev).to(dtype).T[:, None, :]
     q = q.expand(4, b, s).reshape(4, b * s)
     eye = 1e-9 * torch.eye(4, dtype=dtype, device=dev)
     for _ in range(_N_GN):

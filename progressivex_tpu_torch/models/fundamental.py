@@ -59,7 +59,7 @@ def _minimal_batched(samples):
     oriented epipolar constraint."""
     p1 = samples[:, :, :2]  # [B, 7, 2]
     p2 = samples[:, :, 2:4]
-    sqrt2 = torch.tensor(2.0, dtype=samples.dtype, device=samples.device).sqrt()
+    sqrt2 = torch.full((), 2.0, dtype=samples.dtype, device=samples.device).sqrt()
 
     def norm_stats(p):
         c = p.mean(1)  # [B, 2]

@@ -27,7 +27,7 @@ _EPS = 1e-12
 
 
 def _sqrt2(like):
-    return torch.tensor(2.0, dtype=like.dtype, device=like.device).sqrt()
+    return torch.full((), 2.0, dtype=like.dtype, device=like.device).sqrt()
 
 
 def _dlt_rows(x1, y1, x2, y2):

@@ -21,6 +21,12 @@ JAX functions under `jax.vmap`. All rows of a fit share N, and so whether
 the adjacency is banded. `icm_sweeps` stops when no row moved a point; a
 row that has converged is held, so its result does not depend on the
 others.
+
+Candidates: labels (and costs) may carry more leading axes than the
+adjacency has rows, [(R,) C..., N]: candidate labelings of each row's
+scene (the merge and split moves relabel every candidate state at once).
+They share their row's adjacency, which is never copied: the candidates
+are folded into the columns of one adjacency product.
 """
 
 from __future__ import annotations
@@ -42,13 +48,6 @@ class BandedAdj(NamedTuple):
 
     blocks: torch.Tensor  # [(R,) nb, 128, 128 + 2W] f32
     deg: torch.Tensor  # [(R,) N] f32 row degrees
-
-
-def adj_row(adj, r: int):
-    """Row r of a row-batched adjacency (dense or banded)."""
-    if isinstance(adj, BandedAdj):
-        return BandedAdj(blocks=adj.blocks[r], deg=adj.deg[r])
-    return adj[r]
 
 
 def adj_one_row(adj):
@@ -123,10 +122,33 @@ def degrees(adj):
     return adj.sum(-1)
 
 
+def _adj_rows(adj) -> int:
+    """How many leading row axes the adjacency has (0 or 1)."""
+    if isinstance(adj, BandedAdj):
+        return adj.blocks.ndim - 3
+    return adj.ndim - 2
+
+
+def _degrees_like(adj, labels):
+    """degrees(adj) [(R,) N] shaped to broadcast against labels
+    [(R,) C..., N]: [(R,) 1..., N]."""
+    deg = degrees(adj)
+    n_cand = labels.ndim - deg.ndim
+    return deg.reshape(*deg.shape[:-1], *([1] * n_cand), deg.shape[-1])
+
+
 def neighbor_label_counts(adj, labels, num_labels: int):
-    """[(R,) L, N]: how many of each point's neighbors carry each label."""
+    """[(R,) C..., L, N]: how many of each point's neighbors carry each
+    label, for labels [(R,) C..., N]. The candidate axes C ride in the
+    columns of one product with the row's adjacency; the counts are whole
+    numbers, exact in any summation order."""
     Y = torch.nn.functional.one_hot(labels.long(), num_labels).to(torch.float32)
-    return _adj_matmul(adj, Y).transpose(-1, -2)
+    lead = _adj_rows(adj)
+    rows, cand, n = Y.shape[:lead], Y.shape[lead:-2], Y.shape[-2]
+    # [(R,) C..., N, L] -> [(R,) N, C... * L]
+    Yc = Y.movedim(-2, lead).reshape(*rows, n, -1)
+    out = _adj_matmul(adj, Yc).reshape(*rows, n, *cand, num_labels)
+    return out.movedim(lead, -1)
 
 
 def neighbor_mean(adj, values):
@@ -159,19 +181,22 @@ def labels_active_mask(labels, active):
 
 
 def _local_costs(dcost, labels, adj, deg, spatial_weight):
-    """dcost + Potts term against the current neighbor labels. [(R,) L, N]."""
+    """dcost + Potts term against the current neighbor labels. [(R,) C..., L, N]."""
     same = neighbor_label_counts(adj, labels, dcost.shape[-2])
     return dcost + spatial_weight * (deg[..., None, :] - same)
 
 
-def icm_sweeps(dcost, labels, adj, spatial_weight, n_sweeps: int):
+def icm_sweeps(dcost, labels, adj, spatial_weight, n_sweeps: int,
+               early_exit: bool = True):
     """Up to n_sweeps checkerboard ICM sweeps (even, then odd index
     parity), stopping after the first sweep that moves no point (of any
     row; a row whose sweep moved nothing is held from then on). Returns
-    (labels, energy)."""
+    (labels, energy). With `early_exit` false all n_sweeps run and no
+    value is read to the host; a row that stopped is held all the same,
+    so the result is the same."""
     n = dcost.shape[-1]
     parity = (torch.arange(n, device=dcost.device) % 2).to(torch.bool)
-    deg = degrees(adj)
+    deg = _degrees_like(adj, labels)
 
     def half_sweep(labels, move_mask):
         best = _local_costs(dcost, labels, adj, deg, spatial_weight).argmin(-2)
@@ -183,15 +208,15 @@ def icm_sweeps(dcost, labels, adj, spatial_weight, n_sweeps: int):
         changed = (new != labels).any(-1)
         labels = torch.where(moving[..., None], new, labels)
         moving = moving & changed
-        if not bool(moving.any()):
+        if early_exit and not bool(moving.any()):
             break
     return labels, labeling_energy(dcost, labels, adj, spatial_weight)
 
 
 def labeling_energy(dcost, labels, adj, spatial_weight):
-    """Total energy [(R,)] of a labeling: data costs plus w times the
+    """Total energy [(R,) C...] of a labeling: data costs plus w times the
     number of directed edges whose ends disagree."""
     lab = labels.long()[..., None, :]
     data = row_sum(dcost.gather(-2, lab)[..., 0, :])
     own = neighbor_label_counts(adj, labels, dcost.shape[-2]).gather(-2, lab)[..., 0, :]
-    return data + spatial_weight * (degrees(adj) - own).sum(-1)
+    return data + spatial_weight * (_degrees_like(adj, labels) - own).sum(-1)

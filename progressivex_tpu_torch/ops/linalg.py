@@ -89,7 +89,7 @@ def smallest_eigvec_2x2(M):
     row = torch.where(use0[..., None], r0, r1)
     v = torch.stack([-row[..., 1], row[..., 0]], -1)
     nrm = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
-    x_axis = torch.tensor([1.0, 0.0], dtype=M.dtype, device=M.device)
+    x_axis = torch.eye(2, dtype=M.dtype, device=M.device)[0]
     return torch.where(nrm > _EPS, v / torch.clamp(nrm, min=_EPS), x_axis)
 
 
@@ -105,7 +105,7 @@ def hartley_normalize(pts, weights):
     centered = pts - mean[..., None, :]
     dist = torch.linalg.vector_norm(centered, dim=-1)
     mean_dist = row_sum(weights * dist) / wsum
-    sqrt2 = torch.tensor(2.0, dtype=pts.dtype, device=pts.device).sqrt()
+    sqrt2 = torch.full((), 2.0, dtype=pts.dtype, device=pts.device).sqrt()
     scale = sqrt2 / torch.clamp(mean_dist, min=_EPS)
     one, zero = torch.ones_like(scale), torch.zeros_like(scale)
     T = torch.stack([

@@ -294,8 +294,11 @@ def test_batched_input_validation():
         progressivex_tpu_torch.findHomographiesBatched([scene], mesh=object(), device="cpu")
     with pytest.raises(TypeError):
         progressivex_tpu_torch.findHomographiesBatched([scene], not_a_kwarg=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slices"):
-        engine._check_slice(engine.EngineConfig(family="homography", neighborhood="grid"))
+    with pytest.raises(NotImplementedError, match="later slice"):
+        engine._check_slice(engine.EngineConfig(family="homography", hyp_axis="hyps"))
+    with pytest.raises(ValueError, match="neighborhood"):
+        engine._check_slice(engine.EngineConfig(family="homography", neighborhood="ball"))
+    engine._check_slice(engine.EngineConfig(family="homography", neighborhood="grid"))
     with pytest.raises(ValueError, match="per-row sample shapes"):
         convert.presampled_rows(np.zeros((2, 8, 4)), np.zeros((2, 8), bool),
                                 np.zeros((0, 8, 4)), np.zeros((0, 8), bool), device="cpu")
