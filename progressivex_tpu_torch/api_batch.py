@@ -34,8 +34,14 @@ run, and they differ from the single-scene front ends' (one generator for
 all restarts).
 
 Keywords and defaults are the JAX package's, plus `device` (the card
-unless `device="cpu"`). `mesh` and `n_devices` take their JAX defaults;
-sharding scenes over several cards is not ported (ROADMAP.md A, item 4).
+unless `device="cpu"`). `mesh` (a `parallel/sharding.Mesh` with a
+"scenes" axis) or `n_devices` > 1 (`make_mesh(n_devices, 1)` over the
+visible cards) shards each pad level's rows contiguously over the scenes
+axis, as the JAX package's shard_map does (api_batch.py:47-100): lanes
+round up to the axis size, each shard runs on its scenes device in a host
+thread of its own, and `device` is not read. Seeds do not change, so a
+scene gives the same bits sharded and unsharded. The scenes axis only:
+the batched front ends set no hyp axis, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ from progressivex_tpu_torch._device import resolve_device
 from progressivex_tpu_torch.core import engine
 from progressivex_tpu_torch.core.config import EngineConfig, make_params
 from progressivex_tpu_torch.models import get_family
+from progressivex_tpu_torch.parallel import sharding
 
 
 def _next_pow2(n: int) -> int:
@@ -62,54 +69,29 @@ def row_seed(random_seed: int, n_pad: int, scene: int, restart: int) -> int:
         [int(random_seed), int(n_pad), int(scene), int(restart)]).generate_state(1)[0])
 
 
-def _check_mesh(mesh, n_devices):
-    if mesh is not None or (n_devices is not None and int(n_devices) != 1):
-        raise NotImplementedError(
-            "scene sharding over several devices (mesh, n_devices) is not "
-            "ported; the port runs on one card")
+def _resolve_mesh(mesh, n_devices):
+    """The scenes mesh of a batched call: `mesh` if it has a "scenes"
+    axis, else one of `n_devices` cards when that is more than 1, else
+    None."""
+    if mesh is not None:
+        if "scenes" not in getattr(mesh, "axis_names", ()):
+            raise ValueError("mesh must have a 'scenes' axis")
+        return mesh
+    if n_devices is None or int(n_devices) <= 1:
+        return None
+    return sharding.make_mesh(int(n_devices), 1)
 
 
-def _run_batched(
-    family_name,
-    datas,  # list of [n_i, d] float32 arrays
-    weights_list,  # list of [n_i] or None
-    *,
-    thresholds,  # scalar or per-scene list
-    conf,
-    spatial_coherence_weight,
-    neighborhood_ball_radius,
-    maximum_tanimoto_similarity,
-    max_iters,
-    minimum_point_number,
-    maximum_model_number,
-    sampler_id,
-    scoring_exponent,
-    graph_datas=None,  # list of [n_i, d'] or None
-    random_seed=0,
-    n_restarts=1,
-    restart_rule="energy",
-    magsac_levels=0,
-    final_relabel=0,
-    final_polish=0,
-    lo_spatial_lambda=0.5,
-    max_rounds=10,
-    pearl_iters=3,
-    split_pass=0,
-    do_logging=False,
-    mesh=None,
-    n_devices=None,
-    device=None,
-    pad_to=None,
-    lanes=None,
-):
-    """The batched fit of `datas`, one `engine.fit_rows` call a pad level.
-    `pad_to` puts every scene in one given pad level and `lanes` sets its
-    lane count in place of the next power of two of the scene count: the
-    dataset harness's own bucket and lane plan (eval/adelaide)."""
-    _check_mesh(mesh, n_devices)
-    dev = resolve_device(device)
-    n_scenes = len(datas)
-    th_vec = np.broadcast_to(np.asarray(thresholds, np.float32), (n_scenes,)).copy()
+def engine_setup(family_name, *, threshold, conf, spatial_coherence_weight,
+                 neighborhood_ball_radius, maximum_tanimoto_similarity, max_iters,
+                 minimum_point_number, maximum_model_number, sampler_id,
+                 scoring_exponent, n_restarts=1, restart_rule="energy",
+                 magsac_levels=0, final_relabel=0, final_polish=0,
+                 lo_spatial_lambda=0.5, max_rounds=10, pearl_iters=3, split_pass=0):
+    """The EngineConfig and RuntimeParams of a batched call's keywords
+    (threshold a scalar: a batched call replaces it per row), as the JAX
+    package's `_run_batched` builds them; `n_restarts` is the engine's
+    (the batched front ends run restarts as rows and pass 1)."""
     family = get_family(family_name)
     n_hyp = _api._hyp_budget(max_iters, family.max_solutions, family_name)
     cfg = EngineConfig(
@@ -118,7 +100,7 @@ def _run_batched(
         n_subbatches=_api._n_subbatches(max_iters, n_hyp),
         sampler_id=int(sampler_id),
         lo_spatial_lambda=lo_spatial_lambda,
-        n_restarts=1,  # flattened into the row axis below
+        n_restarts=max(int(n_restarts), 1),
         final_polish=int(final_polish),
         final_relabel=int(final_relabel),
         magsac_levels=int(magsac_levels),
@@ -128,7 +110,7 @@ def _run_batched(
         split_pass=int(split_pass),
     )
     params = make_params(
-        threshold=float(th_vec[0]),  # replaced per row below
+        threshold=float(threshold),
         confidence=conf,
         spatial_weight=spatial_coherence_weight,
         neighborhood_radius=neighborhood_ball_radius,
@@ -139,6 +121,40 @@ def _run_batched(
         scoring_exponent=scoring_exponent,
         n_valid=0,
     )
+    return cfg, params
+
+
+def _run_batched(
+    family_name,
+    datas,  # list of [n_i, d] float32 arrays
+    weights_list,  # list of [n_i] or None
+    *,
+    thresholds,  # scalar or per-scene list
+    graph_datas=None,  # list of [n_i, d'] or None
+    random_seed=0,
+    n_restarts=1,
+    do_logging=False,
+    mesh=None,
+    n_devices=None,
+    device=None,
+    pad_to=None,
+    lanes=None,
+    **setup,
+):
+    """The batched fit of `datas`, one `engine.fit_rows` call a pad level
+    (sharded over the mesh's scenes axis when there is one); `setup` holds
+    `engine_setup`'s keywords. `pad_to` puts every scene in one given pad
+    level and `lanes` sets its lane count in place of the next power of
+    two of the scene count: the dataset harness's own bucket and lane plan
+    (eval/adelaide)."""
+    mesh = _resolve_mesh(mesh, n_devices)
+    dev = resolve_device(device) if mesh is None else mesh.devices[0, 0]
+    n_scene_axis = 1 if mesh is None else mesh.shape["scenes"]
+    n_scenes = len(datas)
+    th_vec = np.broadcast_to(np.asarray(thresholds, np.float32), (n_scenes,)).copy()
+    family = get_family(family_name)
+    # restarts are flattened into the row axis below
+    cfg, params = engine_setup(family_name, threshold=th_vec[0], **setup)
     n_restarts = max(int(n_restarts), 1)
 
     buckets: dict[int, list[int]] = {}
@@ -148,7 +164,10 @@ def _run_batched(
     results: list = [None] * n_scenes
     for n_pad in sorted(buckets):
         idxs = buckets[n_pad]
-        n_lanes = int(lanes) if lanes else _next_pow2(len(idxs))
+        # Lanes cover the scenes and divide over the mesh's scenes axis
+        # (both powers of two, so max() suffices), as in the JAX package.
+        n_lanes = int(lanes) if lanes else max(_next_pow2(len(idxs)),
+                                               _next_pow2(n_scene_axis))
         if n_lanes < len(idxs):
             raise ValueError(f"{len(idxs)} scenes for {n_lanes} lanes")
         lane_ids = [idxs[j % len(idxs)] for j in range(n_lanes)]
@@ -172,27 +191,33 @@ def _run_batched(
                 gd[j, :n] = graph_datas[i]
 
         def tile(a):
-            return torch.from_numpy(np.concatenate([a] * n_restarts)).to(dev)
+            t = torch.from_numpy(np.concatenate([a] * n_restarts))
+            return t if mesh is not None else t.to(dev)  # a shard goes to its device
 
         gens = [torch.Generator().manual_seed(row_seed(random_seed, n_pad, s, r))
                 for r in range(n_restarts) for s in lane_ids]
-        res = engine.fit_rows(
-            family, cfg, params._replace(n_valid=np.tile(nv, n_restarts),
-                                         threshold=np.tile(th, n_restarts)),
-            tile(data), tile(mask), tile(wts), generators=gens,
-            graph_data=None if gd is None else tile(gd))
+        row_params = params._replace(n_valid=np.tile(nv, n_restarts),
+                                     threshold=np.tile(th, n_restarts))
+        row_args = (tile(data), tile(mask), tile(wts))
+        row_graph = None if gd is None else tile(gd)
+        if mesh is None:
+            res = engine.fit_rows(family, cfg, row_params, *row_args, generators=gens,
+                                  graph_data=row_graph)
+        else:
+            res = sharding.fit_rows_sharded(family, cfg, row_params, *row_args, gens,
+                                            mesh, graph_data=row_graph)
         energy = res.energy.cpu().numpy().reshape(n_restarts, n_lanes)
         nmod = res.n_models.cpu().numpy().reshape(n_restarts, n_lanes)
         for j, i in enumerate(lane_ids[:len(idxs)]):
             r = engine.select_restart(energy[:, j],
-                                      restart_rule if n_restarts > 1 else "energy",
+                                      cfg.restart_rule if n_restarts > 1 else "energy",
                                       nmod[:, j])
             results[i] = engine.compact_result(
                 engine.row_result(res, r * n_lanes + j), int(nv[j]))
         if do_logging:
             print(f"[progressivex_tpu_torch.batch] {family_name} n_pad={n_pad}: "
-                  f"{len(idxs)} scenes ({n_lanes} lanes x {n_restarts} restarts)",
-                  file=sys.stderr)
+                  f"{len(idxs)} scenes ({n_lanes} lanes x {n_restarts} restarts"
+                  f"{'' if mesh is None else f', {mesh}'})", file=sys.stderr)
     return results
 
 

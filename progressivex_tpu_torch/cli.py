@@ -17,6 +17,9 @@ run used where a scene fits one, one timing run, and adds the JAX bench's
 `synth{19,18}{H,F}_n_scenes`, `_mean_misclassification`,
 `_dataset_seconds` and `_compile_seconds` (bench.py:298-329).
 
+`PROGX_BENCH_DEVICES=n` (n > 1) shards every batch of the bench over n
+cards' scenes axis (`eval/adelaide`).
+
 `eval_main` runs the notebook protocol once per scene of a dataset
 (`eval/adelaide.evaluate_scenes`: `--root`, else the bundled scenes) and
 prints the JSON result. Both run on the card unless `--device cpu` is

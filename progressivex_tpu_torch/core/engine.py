@@ -35,6 +35,18 @@ restart 0 draws first, then restart 1, and so on. The `presampled`
 argument replaces the draws (a test replays the JAX package's exact
 samples through it).
 
+Hypothesis parallelism (`cfg.hyp_axis`, the JAX package's hyp mesh axis,
+progressivex_tpu/core/engine.py:374-381, :850-854): every row runs H
+replicas of its proposal, each on samples of its own (a generator a
+replica, in place of JAX's fold_in of the axis index), each with its own
+sub-batch search, top-T and LO; the round's winner is the argmax of the
+H replicas' scores (ties to the lowest replica, as jnp.argmax) and the
+samples drawn are their sum. Replicas on the fit's device run as extra
+rows of one proposal; replicas on another device (`hyp_devices`) get
+copies of the round's inputs there and send their winners back. The rest
+of the round runs once a row: in the JAX package every replica runs it on
+the same inputs.
+
 Live progress (`cfg.live_progress`): after each pass of the round loop,
 `LIVE_CALLBACK` receives one dict a row, in row order, with the JAX
 package's keys (progressivex_tpu/core/engine.py:71-94): a row's "round" is
@@ -56,6 +68,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from progressivex_tpu_torch._device import run_per_device
 from progressivex_tpu_torch.core.config import (EngineConfig, RuntimeParams, per_row,
                                                 rows_params, truncated_sq_threshold)
 from progressivex_tpu_torch.core.pearl import (_top_k, merge_instances, pearl_run,
@@ -64,6 +77,7 @@ from progressivex_tpu_torch.models.base import ModelFamily
 from progressivex_tpu_torch.ops.knn import grid_graph, knn_graph
 from progressivex_tpu_torch.ops.linalg import gram, row_sum
 from progressivex_tpu_torch.ops.labeling import (
+    BandedAdj,
     adjacency_banded,
     adjacency_from_knn,
     data_costs,
@@ -146,6 +160,8 @@ class FitResult(NamedTuple):
     energy: torch.Tensor  # final total energy (data + Potts + label costs)
     round_log: RoundLog
     compound_pref: torch.Tensor  # [N] of the final descriptors
+    samples_drawn: torch.Tensor  # minimal samples drawn in the proposals, every
+    # replica's, before total_iters' k* cap
     restart: int = 0  # index of the winning restart
     restart_energies: tuple = ()  # final energy of every restart
 
@@ -165,13 +181,12 @@ def _take(x, idx):
     return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
 
 
-def _proposal(family, cfg, params, data, pmask, pweights, idx, samp_ok,
-              idx_ext, ok_ext, adj, compound_pref, has_compound):
+def _search(family, cfg, params, data, pmask, pweights, idx, samp_ok,
+            idx_ext, ok_ext, adj, compound_pref, has_compound):
     """One batched proposal + spatially coherent IRLS local optimization
     on every row. data [R, N, d], idx [R, B, m], samp_ok [R, B], idx_ext
     [R, S-1, B, m], compound_pref [R, N], has_compound [R]. Returns
-    (desc [R, D], score [R], valid [R], sq_residuals [R, N],
-    samples_drawn [R])."""
+    (desc [R, D], score [R], samples_drawn [R])."""
     rows = data.shape[0]
     ar = torch.arange(rows, device=data.device)
     trunc_sq = truncated_sq_threshold(params.threshold)  # [R]
@@ -268,24 +283,136 @@ def _proposal(family, cfg, params, data, pmask, pweights, idx, samp_ok,
             break
     scores_lo = torch.where(cand_valid, sc, _NEG)
     best_t = scores_lo.argmax(-1)
-    desc, score_best = d[ar, best_t], scores_lo[ar, best_t]
-    return (desc, score_best, score_best > _NEG / 2,
-            family.squared_residual(data, desc), samples_drawn)
+    return d[ar, best_t], scores_lo[ar, best_t], samples_drawn
 
 
-def _round(family, cfg, params, data, pmask, pweights, idx, samp_ok,
-           idx_ext, ok_ext, adj, state: FitState):
+def _repeat_rows(x, k: int):
+    """Every row of x [R, ...] k times in a row -> [R * k, ...] (a
+    BandedAdj's tensors alike, a scalar as it is)."""
+    if isinstance(x, BandedAdj):
+        return BandedAdj(*(_repeat_rows(t, k) for t in x))
+    if k == 1 or not isinstance(x, torch.Tensor) or x.ndim == 0:
+        return x
+    return x.repeat_interleave(k, dim=0)
+
+
+def _to(x, dev):
+    if isinstance(x, BandedAdj):
+        return BandedAdj(*(t.to(dev) for t in x))
+    return x.to(dev) if isinstance(x, torch.Tensor) else x
+
+
+class _Replicas:
+    """The hyp axis of a fit: H replicas of every row's proposal, grouped
+    by device. A group's inputs are the fit's tensors on its device, each
+    row repeated once a replica of the group (row r, replica j of the
+    group at r * k + j), made once a fit; its samples [R, H, ...] are the
+    group's replicas' (idx_all [R, H, rounds, B, m], ok_all [R, H,
+    rounds, B], idx_ext [R, H, S-1, B, m], ok_ext [R, H, S-1, B])."""
+
+    def __init__(self, devices, params, data, pmask, pweights, adj, idx_all, ok_all,
+                 idx_ext, ok_ext):
+        self.home = data.device
+        self.n_rows, self.n_hyp = idx_all.shape[:2]
+        if len(devices) != self.n_hyp:
+            raise ValueError(f"{len(devices)} replica devices for {self.n_hyp} replicas")
+        by_dev: dict = {}
+        for h, dev in enumerate(devices):
+            by_dev.setdefault(torch.device(dev), []).append(h)
+        self.groups = []
+        for dev, hs in by_dev.items():
+            k = len(hs)
+
+            def rows(x):
+                return _repeat_rows(_to(x, dev), k)
+
+            def samples(t):
+                # all replicas on one device take the samples as they are
+                # (a list index would copy itself to the card and wait)
+                t = t if k == self.n_hyp else t[:, hs]
+                return t.to(dev).reshape(self.n_rows * k, *t.shape[2:])
+
+            self.groups.append({
+                "device": dev, "replicas": hs,
+                "params": params._replace(threshold=rows(params.threshold),
+                                          n_valid=rows(params.n_valid)),
+                "inputs": tuple(rows(x) for x in (data, pmask, pweights)),
+                "adj": rows(adj),
+                "samples": tuple(samples(t) for t in (idx_all, ok_all, idx_ext, ok_ext)),
+            })
+        # The groups' winners come back in group order; this device index
+        # puts them in replica order (None when they already are).
+        order = [h for g in self.groups for h in g["replicas"]]
+        self.perm = (None if order == list(range(self.n_hyp))
+                     else torch.as_tensor(np.argsort(order), device=self.home))
+
+    def propose(self, family, cfg, rnd, compound_pref, has_compound):
+        """Round `rnd`'s proposal of every replica, reduced to one winner a
+        row on the fit's device: (desc [R, D], score [R], samples_drawn
+        [R])."""
+        def group_search(g):
+            k = len(g["replicas"])
+            idx_all, ok_all, idx_ext, ok_ext = g["samples"]
+            return _search(family, cfg, g["params"], *g["inputs"], idx_all[:, rnd],
+                           ok_all[:, rnd], idx_ext, ok_ext, g["adj"],
+                           _repeat_rows(compound_pref.to(g["device"]), k),
+                           _repeat_rows(has_compound.to(g["device"]), k))
+
+        outs = run_per_device(group_search, [(g["device"], (g,)) for g in self.groups])
+        r = self.n_rows
+
+        def gather(i):
+            # [R, H, ...]: every group's [R * k, ...] as [R, k, ...], in replica order
+            parts = [out[i].to(self.home).reshape(r, len(g["replicas"]), *out[i].shape[1:])
+                     for g, out in zip(self.groups, outs)]
+            t = parts[0] if len(parts) == 1 else torch.cat(parts, 1)
+            return t if self.perm is None else t.index_select(1, self.perm)
+
+        desc, score, drawn = gather(0), gather(1), gather(2)
+        best = score.argmax(1)  # the first maximum, as jnp.argmax
+        ar = torch.arange(r, device=self.home)
+        return desc[ar, best], score[ar, best], drawn.sum(1)
+
+
+def _make_propose(family, cfg, params, data, pmask, pweights, adj, samples,
+                  hyp_devices=None):
+    """The proposal of a fit's rounds, `propose(rnd, compound_pref,
+    has_compound)` -> (desc [R, D], score [R], samples_drawn [R]) of round
+    rnd on every row: `_search` on the round's samples, or with
+    `cfg.hyp_axis` set the H replicas of `_Replicas` reduced to one winner
+    a row. `samples` is `fit_rows`' `presampled` on the device of `data`
+    (with its replica axis under cfg.hyp_axis), `hyp_devices` the device
+    of each replica (the device of `data` for all if None)."""
+    idx_all, ok_all, idx_ext, ok_ext = samples
+    if cfg.hyp_axis is None:
+        def propose(rnd, compound_pref, has_compound):
+            return _search(family, cfg, params, data, pmask, pweights, idx_all[:, rnd],
+                           ok_all[:, rnd], idx_ext, ok_ext, adj, compound_pref,
+                           has_compound)
+        return propose
+    replicas = _Replicas([data.device] * idx_all.shape[1] if hyp_devices is None
+                         else hyp_devices, params, data, pmask, pweights, adj, idx_all,
+                         ok_all, idx_ext, ok_ext)
+
+    def propose(rnd, compound_pref, has_compound):
+        return replicas.propose(family, cfg, rnd, compound_pref, has_compound)
+    return propose
+
+
+def _round(family, cfg, params, data, pmask, pweights, adj, propose, state: FitState):
     """One propose -> validate -> optimize -> update -> terminate round on
-    every row. Returns (new state, per-row statistics); the caller keeps
-    the old state of rows that were done."""
+    every row; `propose(compound_pref, has_compound)` is the round's
+    proposal, (desc [R, D], score [R], samples_drawn [R]). Returns (new
+    state, per-row statistics, samples drawn [R]); the caller keeps the
+    old state of rows that were done."""
     k_slots = cfg.max_models
     trunc_sq = truncated_sq_threshold(params.threshold)  # [R]
     has_compound = state.active.any(-1)
 
     with record_function("progx_proposal"):
-        desc, score, prop_valid, r2_best, samples_drawn = _proposal(
-            family, cfg, params, data, pmask, pweights, idx, samp_ok, idx_ext,
-            ok_ext, adj, state.compound_pref, has_compound)
+        desc, score, samples_drawn = propose(state.compound_pref, has_compound)
+        prop_valid = score > _NEG / 2
+        r2_best = family.squared_residual(data, desc)
 
     # validation (progressive_x.h:565-591), inliers at the raw threshold
     pref_p = truncated_preference(r2_best, trunc_sq) * pmask
@@ -343,15 +470,13 @@ def _round(family, cfg, params, data, pmask, pweights, idx, samp_ok,
 
     new_state = FitState(descs, active, labels, compound_pref, slot + accepted,
                          total_iters, rejections, energy, done)
-    return new_state, (accepted, inlier_cnt, tan, score, energy, n_active_now)
+    return (new_state, (accepted, inlier_cnt, tan, score, energy, n_active_now),
+            samples_drawn)
 
 
 def _check_slice(cfg: EngineConfig):
     if cfg.neighborhood not in ("knn", "grid"):
         raise ValueError(f"unknown neighborhood {cfg.neighborhood!r}")
-    if cfg.hyp_axis is not None:
-        raise NotImplementedError(
-            "EngineConfig option hyp_axis belongs to a later slice of the port")
 
 
 def spatial_order(data, point_mask):
@@ -378,7 +503,7 @@ def spatial_order(data, point_mask):
 
 def fit_rows(family: ModelFamily, cfg: EngineConfig, params: RuntimeParams, data,
              point_mask, point_weights, generators=None, presampled=None,
-             graph_data=None) -> FitResult:
+             graph_data=None, hyp_devices=None) -> FitResult:
     """R independent fits on the device of `data`: data [R, N, d], point
     mask and weights [R, N], `params.threshold` and `params.n_valid`
     shared or one a row ([R]). `graph_data` [R, N, d'], if given, are the
@@ -392,7 +517,15 @@ def fit_rows(family: ModelFamily, cfg: EngineConfig, params: RuntimeParams, data
     [R, S-1, B, m], ok_ext [R, S-1, B])` as the sampler returns them:
     PROSAC's in the caller's point order, every other sampler's in the
     sorted order of the fit. Returns a FitResult with a leading row axis,
-    labels in the caller's point order."""
+    labels in the caller's point order.
+
+    With `cfg.hyp_axis` set, each row runs H replicas of its proposal:
+    `generators` holds H generators a row (replica h draws its rounds,
+    then its extension sub-batches, from the h-th, replica after replica),
+    `presampled` a replica axis after the row axis (idx_all [R, H, rounds,
+    B, m], ok_all [R, H, rounds, B], idx_ext [R, H, S-1, B, m], ok_ext
+    [R, H, S-1, B]), and `hyp_devices` the device of each replica (the
+    device of `data` for all if None)."""
     _check_slice(cfg)
     n_rows, n = data.shape[:2]
     dev = data.device
@@ -431,25 +564,36 @@ def fit_rows(family: ModelFamily, cfg: EngineConfig, params: RuntimeParams, data
             raise ValueError("fit needs a torch.Generator or presampled samples")
         if len(generators) != n_rows:
             raise ValueError(f"{len(generators)} generators for {n_rows} rows")
+        if cfg.hyp_axis is not None:
+            n_hyp = {len(g) for g in generators}
+            if len(n_hyp) != 1:
+                raise ValueError(f"hyp_axis needs the same number of generators a "
+                                 f"row, have {sorted(n_hyp)}")
         with record_function("progx_sampling"):
             presampled = _draw(generators, cfg, family, n_valid_host, samp_idx,
                                samp_mask, n_sub)
     idx_all, ok_all, idx_ext, ok_ext = (t.to(dev) for t in presampled)
     idx_all, idx_ext = idx_all.long(), idx_ext.long()
+    if idx_all.ndim != (5 if cfg.hyp_axis is not None else 4):
+        raise ValueError(f"samples of shape {tuple(idx_all.shape)} for hyp_axis "
+                         f"{cfg.hyp_axis!r}")
     if cfg.sampler_id == 1 and rank is not None:
         # PROSAC draws in quality order, the caller's row order: map its
         # indices through the spatial sort (every other sampler draws in
         # sorted order already).
         idx_all, idx_ext = (rank.gather(1, i.reshape(n_rows, -1)).reshape(i.shape)
                             for i in (idx_all, idx_ext))
+    propose = _make_propose(family, cfg, params, data, point_mask, point_weights, adj,
+                            (idx_all, ok_all, idx_ext, ok_ext), hyp_devices)
     return _fit_prepared(family, cfg, params, data, point_mask, point_weights,
-                         adj, idx_all, ok_all, idx_ext, ok_ext, rank)
+                         adj, propose, rank)
 
 
 def _fit_prepared(family, cfg, params, data, point_mask, point_weights, adj,
-                  idx_all, ok_all, idx_ext, ok_ext, rank):
+                  propose, rank):
     """The round loop and the final moves of `fit_rows`, with the
-    neighborhood tensors built and the samples drawn. `rank` maps the
+    neighborhood tensors built and the samples drawn: `propose(rnd,
+    compound_pref, has_compound)` is round rnd's proposal. `rank` maps the
     caller's point order to the sorted order of a banded fit."""
     dev = data.device
     n_rows, n = data.shape[:2]
@@ -471,12 +615,13 @@ def _fit_prepared(family, cfg, params, data, point_mask, point_weights, adj,
                      for dt in (torch.bool, torch.int64, torch.float32,
                                 torch.float32, torch.float32, torch.int64)))
     rounds_run = zeros(torch.int64)
+    samples_drawn = zeros(torch.int64)
     for rnd in range(cfg.max_rounds):
         if rnd > 0 and bool(state.done.all()):
             break
-        new_state, stats = _round(family, cfg, params, data, point_mask,
-                                  point_weights, idx_all[:, rnd], ok_all[:, rnd],
-                                  idx_ext, ok_ext, adj, state)
+        new_state, stats, drawn = _round(
+            family, cfg, params, data, point_mask, point_weights, adj,
+            lambda *a, rnd=rnd: propose(rnd, *a), state)
         if cfg.live_progress:
             _emit_progress(rounds_run, stats, new_state.labels)
         live = ~state.done  # rows that were done keep their state and log
@@ -485,6 +630,7 @@ def _fit_prepared(family, cfg, params, data, point_mask, point_weights, adj,
         state = FitState(*(torch.where(per_row(live, new.ndim), new, old)
                            for new, old in zip(new_state, state)))
         rounds_run = rounds_run + live
+        samples_drawn = samples_drawn + torch.where(live, drawn, 0)
 
     descs, active, labels = state.descs, state.active, state.labels
     moves = (family, cfg, params, data, point_mask, point_weights)
@@ -521,6 +667,7 @@ def _fit_prepared(family, cfg, params, data, point_mask, point_weights, adj,
         energy=energy,
         round_log=log,
         compound_pref=torch.clamp(pref_f.amax(-2), min=0.0),
+        samples_drawn=samples_drawn,
     )
 
 
@@ -533,7 +680,7 @@ def row_result(rows: FitResult, r: int) -> FitResult:
         n_models=int(rows.n_models[r]), total_iters=int(rows.total_iters[r]),
         rounds_run=n_rounds, energy=rows.energy[r],
         round_log=RoundLog(*(col[r, :n_rounds].tolist() for col in rows.round_log)),
-        compound_pref=rows.compound_pref[r])
+        compound_pref=rows.compound_pref[r], samples_drawn=int(rows.samples_drawn[r]))
 
 
 def fit(family: ModelFamily, cfg: EngineConfig, params: RuntimeParams, data,
@@ -604,11 +751,13 @@ def select_restart(energy, rule: str, n_models=None) -> int:
 def _draw(generators, cfg, family, n_valid, samp_idx, samp_mask, n_sub):
     """Every row's samples, drawn on the host from its generator: the
     row's max_rounds proposal batches, then its n_sub - 1 extension
-    batches, row after row. Returns the `presampled` tuple."""
+    batches, row after row; with `cfg.hyp_axis`, replica after replica
+    within a row, each from its own of the row's generators. Returns the
+    `presampled` tuple (with the replica axis after the row axis)."""
     samp_idx, samp_mask = samp_idx.cpu(), samp_mask.cpu()  # one copy each
 
-    def batches(r, count):
-        draws = [sample_minimal(generators[r], cfg.sampler_id, cfg.n_hypotheses,
+    def batches(gen, r, count):
+        draws = [sample_minimal(gen, cfg.sampler_id, cfg.n_hypotheses,
                                 family.sample_size, int(n_valid[r]), samp_idx[r],
                                 samp_mask[r]) for _ in range(count)]
         if not draws:
@@ -616,9 +765,17 @@ def _draw(generators, cfg, family, n_valid, samp_idx, samp_mask, n_sub):
                     torch.zeros(0, cfg.n_hypotheses, dtype=torch.bool))
         return torch.stack([d[0] for d in draws]), torch.stack([d[1] for d in draws])
 
-    runs = [(*batches(r, cfg.max_rounds), *batches(r, n_sub - 1))
-            for r in range(len(generators))]
-    return tuple(torch.stack([run[i] for run in runs]) for i in range(4))
+    def run(gen, r):
+        return (*batches(gen, r, cfg.max_rounds), *batches(gen, r, n_sub - 1))
+
+    def stack(runs, i):
+        return torch.stack([one[i] for one in runs])
+
+    if cfg.hyp_axis is None:
+        runs = [run(g, r) for r, g in enumerate(generators)]
+        return tuple(stack(runs, i) for i in range(4))
+    runs = [[run(g, r) for g in gens] for r, gens in enumerate(generators)]
+    return tuple(torch.stack([stack(reps, i) for reps in runs]) for i in range(4))
 
 
 def _final_polish(family, cfg, params, data, pmask, pweights, descs, active, labels):

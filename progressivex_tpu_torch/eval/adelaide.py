@@ -18,6 +18,11 @@ most min(768, 384 * 4095 // flat hypotheses), and at most 160 rows, or
 lanes runs in chunks. Each chunk is one `api_batch._run_batched` call on
 the card, F's restarts rows of it. The split move runs in buckets of 512
 points and up (`split_pass_min_npad`).
+
+`PROGX_BENCH_DEVICES=n` (n > 1) shards every batch's rows over the
+scenes axis of `make_mesh(n, 1)`, n cards, as in the JAX package
+(progressivex_tpu/eval/adelaide.py:619-627): the lane plan then gives
+each batch at least n lanes.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from progressivex_tpu_torch.io.data import (ADELAIDE_F_SCENES, ADELAIDE_H_SCENES
 from progressivex_tpu_torch.io.metrics import misclassification
 from progressivex_tpu_torch.kernels.scoring import LAUNCHES
 from progressivex_tpu_torch.models import get_family
+from progressivex_tpu_torch.parallel.sharding import make_mesh
 
 # The notebook protocols (adelaideH.ipynb / adelaideF.ipynb cell 3) with the
 # JAX package's measured extensions; the reasons for each are at
@@ -159,10 +165,12 @@ class LaneBatch(NamedTuple):
 
 
 def lane_plan(problem: str, sizes, lane_target: int | None = None,
-              allowed_buckets=None) -> list:
+              allowed_buckets=None, n_devices: int = 1) -> list:
     """The JAX package's lane plan (progressivex_tpu/eval/adelaide.py:
     606-722) for scenes of `sizes` points: one LaneBatch a bucket, or a
-    chunk of a bucket holding more scenes than its lanes."""
+    chunk of a bucket holding more scenes than its lanes; with a scenes
+    axis of `n_devices` (a power of two), at least that many lanes a
+    batch, so that its rows divide over the axis."""
     problem = problem.upper()
     kw, _, _, family_name = _PROBLEMS[problem]
     family = get_family(family_name)
@@ -187,6 +195,7 @@ def lane_plan(problem: str, sizes, lane_target: int | None = None,
         lanes = max(target, 1 << (len(idxs) - 1).bit_length())
         while lanes * n_restarts > max_rows and lanes > 32:
             lanes //= 2
+        lanes = max(lanes, n_devices)
         for c in range(0, len(idxs), lanes):
             plan.append(LaneBatch(n_pad, lanes, n_restarts, sp,
                                   tuple(idxs[c:c + lanes])))
@@ -217,7 +226,13 @@ class _Prepared(NamedTuple):
     plan: list
 
 
-def _prepare(problem, root, lane_target, allowed_buckets) -> _Prepared:
+def _bench_mesh():
+    """The scenes mesh `PROGX_BENCH_DEVICES` asks for, or None."""
+    n_dev = int(os.environ.get("PROGX_BENCH_DEVICES", "1"))
+    return make_mesh(n_dev, 1) if n_dev > 1 else None
+
+
+def _prepare(problem, root, lane_target, allowed_buckets, mesh) -> _Prepared:
     problem = problem.upper()
     scene_root, names, full = discover_scenes(problem, root)
     scenes = []
@@ -225,41 +240,45 @@ def _prepare(problem, root, lane_target, allowed_buckets) -> _Prepared:
         corrs, gt = load_corr_scene(name, root=scene_root)
         scenes.append((np.ascontiguousarray(corrs, np.float32), gt))
     plan = lane_plan(problem, [len(gt) for _, gt in scenes], lane_target,
-                     allowed_buckets)
+                     allowed_buckets, 1 if mesh is None else mesh.shape["scenes"])
     return _Prepared(problem, names, scenes, full, plan)
 
 
-def _run(prep: _Prepared, batch: LaneBatch, seed: int, dev):
-    """One batch on `dev`: the labels of every lane. A replicated lane is
-    another draw of its scene (its seed comes from its lane position), as
-    every row of the JAX package's batch has a key of its own."""
+def _run(prep: _Prepared, batch: LaneBatch, seed: int, dev, mesh):
+    """One batch on `dev`, or over `mesh`'s scenes axis: the labels of
+    every lane. A replicated lane is another draw of its scene (its seed
+    comes from its lane position), as every row of the JAX package's
+    batch has a key of its own."""
     kw = scene_kwargs(batch.n_pad, prep.problem)
     kw.pop("split_pass", None)
     thr = kw.pop("threshold")
     out = api_batch._run_batched(
         _PROBLEMS[prep.problem][3], [prep.scenes[i][0] for i in batch.lane_ids], None,
         thresholds=thr, random_seed=seed, device=dev, split_pass=batch.split_pass,
-        pad_to=batch.n_pad, lanes=batch.lanes, **kw)
+        pad_to=batch.n_pad, lanes=batch.lanes, mesh=mesh, **kw)
     return [labels for _, labels in out]
 
 
-def _sync(dev):
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+def _sync(dev, mesh):
+    """Wait for `dev`, or for every card of `mesh`."""
+    devs = {dev} if mesh is None else set(mesh.devices.reshape(-1))
+    for d in devs:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
 
 
-def _warm_up(preps, seed, dev) -> float:
+def _warm_up(preps, seed, dev, mesh) -> float:
     """The first, untimed call of every batch (the kernels' build and the
     first launches); returns its wall seconds."""
     t0 = time.perf_counter()
     for prep in preps:
         for batch in prep.plan:
-            _run(prep, batch, seed, dev)
-    _sync(dev)
+            _run(prep, batch, seed, dev, mesh)
+    _sync(dev, mesh)
     return time.perf_counter() - t0
 
 
-def _time_batches(prep: _Prepared, n_timing_runs, seed, dev, compile_s):
+def _time_batches(prep: _Prepared, n_timing_runs, seed, dev, mesh, compile_s):
     """Timed runs of every batch (seeds seed + 1, seed + 2, ...): the best
     host-clock time of each, ending in a device synchronization. ME comes
     from every lane of every timing run, averaged per distinct scene
@@ -271,8 +290,8 @@ def _time_batches(prep: _Prepared, n_timing_runs, seed, dev, compile_s):
         for i in range(n_timing_runs):
             before = sum(LAUNCHES.values())
             t0 = time.perf_counter()
-            labels = _run(prep, batch, seed + i + 1, dev)
-            _sync(dev)
+            labels = _run(prep, batch, seed + i + 1, dev, mesh)
+            _sync(dev, mesh)
             times.append(time.perf_counter() - t0)
             launches = sum(LAUNCHES.values()) - before
             for s, lab in zip(batch.lane_ids, labels):
@@ -296,14 +315,16 @@ def throughput_batch(problem: str, root: str | None = None, n_timing_runs: int =
                      seed: int = 0, lane_target: int | None = None,
                      allowed_buckets=None, device=None) -> ThroughputResult:
     """Scene-batched throughput of `problem` ("H" or "F") over a dataset
-    (`discover_scenes`), on the card unless `device` says otherwise:
-    the lane plan's batches, each first called once untimed (seed `seed`,
-    `compile_seconds`), then `n_timing_runs` timed runs. Throughput =
-    lanes / the sum of each batch's best time."""
+    (`discover_scenes`), on the card unless `device` says otherwise (or
+    over `PROGX_BENCH_DEVICES` cards): the lane plan's batches, each first
+    called once untimed (seed `seed`, `compile_seconds`), then
+    `n_timing_runs` timed runs. Throughput = lanes / the sum of each
+    batch's best time."""
     dev = torch.device("cuda" if device is None else device)
-    prep = _prepare(problem, root, lane_target, allowed_buckets)
-    compile_s = _warm_up([prep], seed, dev)
-    return _time_batches(prep, n_timing_runs, seed, dev, compile_s)
+    mesh = _bench_mesh()
+    prep = _prepare(problem, root, lane_target, allowed_buckets, mesh)
+    compile_s = _warm_up([prep], seed, dev, mesh)
+    return _time_batches(prep, n_timing_runs, seed, dev, mesh, compile_s)
 
 
 def dataset_pass_seconds(problem: str, root: str | None = None, seed: int = 0,
@@ -325,8 +346,9 @@ def throughput_all(problems="HF", root=None, n_timing_runs: int = 3, seed: int =
     is one dataset directory, or a dict of one a problem. Returns
     ({problem: ThroughputResult}, warm-up wall seconds)."""
     dev = torch.device("cuda" if device is None else device)
+    mesh = _bench_mesh()
     preps = [_prepare(p, root.get(p) if isinstance(root, dict) else root, lane_target,
-                      allowed_buckets) for p in problems.upper()]
-    compile_s = _warm_up(preps, seed, dev)
-    return ({prep.problem: _time_batches(prep, n_timing_runs, seed, dev, compile_s)
+                      allowed_buckets, mesh) for p in problems.upper()]
+    compile_s = _warm_up(preps, seed, dev, mesh)
+    return ({prep.problem: _time_batches(prep, n_timing_runs, seed, dev, mesh, compile_s)
              for prep in preps}, compile_s)

@@ -4,7 +4,9 @@ Each source is compiled by `nvcc` for sm_90a into
 `<checkout>/build/torch_kernels/<name>-<hash>.so`, where the hash covers
 the source, every shared header (csrc/*.cuh) and the flags, and loaded
 with ctypes. A library is built at its first use in a process, or by
-`build_all`, which starts one `nvcc` per source at once. Nothing here runs when the module is imported.
+`build_all`, which starts one `nvcc` per source at once; a lock makes
+host threads that first use a library at once (a device mesh) build and
+load it once. Nothing here runs when the module is imported.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -25,6 +28,7 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict = {}
+_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -76,14 +80,18 @@ def _finish(name: str, job) -> str:
 def build_all() -> dict:
     """Compile every source not yet built, all nvcc processes at once.
     Returns {name: compiler output} for the sources compiled now."""
-    jobs = {name: _start(name) for name in SOURCES}
-    return {name: _finish(name, job) for name, job in jobs.items()}
+    with _LOCK:
+        jobs = {name: _start(name) for name in SOURCES}
+        return {name: _finish(name, job) for name, job in jobs.items()}
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, built first if needed."""
     lib = _LIBS.get(name)
     if lib is None:
-        _finish(name, _start(name))
-        lib = _LIBS[name] = ctypes.CDLL(_target(name))
+        with _LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                _finish(name, _start(name))
+                lib = _LIBS[name] = ctypes.CDLL(_target(name))
     return lib

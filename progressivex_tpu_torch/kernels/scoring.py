@@ -22,18 +22,33 @@ Rows: every function takes a leading row axis, data [R, N, 4], descs
 scalars), they return [B] outputs, as one row.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
-the kernel or raises. `LAUNCHES` counts kernel launches, incremented at
-the one place a launch happens.
+the kernel or raises. A launch goes to the device of its tensors, whatever
+the calling thread's current device. `LAUNCHES` counts kernel launches and
+`ROWS` the rows they scored, both incremented under a lock at the one
+place a launch happens, so that the counts are exact when several host
+threads launch (a device mesh, parallel/sharding).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
+from progressivex_tpu_torch._device import device_guard
+
 LAUNCHES = {"score_homography": 0, "score_fundamental": 0}
+ROWS = {"score_homography": 0, "score_fundamental": 0}
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(name: str, rows: int):
+    """One launch of `name` over `rows` rows, counted."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+        ROWS[name] += rows
 
 
 def score_homography_plain(data, descs, compound_pref, point_mask, trunc_sq,
@@ -66,9 +81,9 @@ def _kernel(name: str):
     fn = getattr(_build.load(name), name)
     if fn.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.restype = ci  # before argtypes, which another thread tests
         fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp, vp, cf, ci, ci, ci, ci,
                        vp, vp, vp, vp, vp]
-        fn.restype = ci
     return fn
 
 
@@ -141,9 +156,11 @@ def _launch(name, data, descs, compound_pref, point_mask, trunc_sq, exponent,
     if b == 0 or r == 0:
         return scores, inliers, dots, norms
     stream = torch.cuda.current_stream(dev).cuda_stream
-    # The annotation ties the launch to the engine's phase scopes in a
-    # profile (io/profiling.py); it launches nothing.
-    with torch.profiler.record_function(name):
+    # The library's CUDA runtime launches on the thread's current device,
+    # so the guard makes that the tensors' device. The annotation ties the
+    # launch to the engine's phase scopes in a profile (io/profiling.py);
+    # it launches nothing.
+    with device_guard(dev), torch.profiler.record_function(name):
         err = _kernel(name)(
             pts.data_ptr(), comp.data_ptr(), pm.data_ptr(), descs.data_ptr(), r, b, n,
             tau.data_ptr(), has.data_ptr(), float(exponent), int(magsac_levels),
@@ -151,7 +168,7 @@ def _launch(name, data, descs, compound_pref, point_mask, trunc_sq, exponent,
             dots.data_ptr(), norms.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    _count(name, r)
     return scores, inliers, dots, norms
 
 

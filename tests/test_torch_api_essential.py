@@ -141,6 +141,6 @@ def test_input_errors():
                                                             device="cpu")
     with pytest.raises(ValueError, match="length mismatch"):
         progressivex_tpu_torch.findEssentialMatricesBatched([corrs], [K, K], K, device="cpu")
-    with pytest.raises(NotImplementedError, match="sharding"):
-        progressivex_tpu_torch.findEssentialMatricesBatched([corrs], K, K, n_devices=2,
-                                                            device="cpu")
+    with pytest.raises(ValueError, match=r"need \d+ devices, have"):
+        progressivex_tpu_torch.findEssentialMatricesBatched(
+            [corrs], K, K, n_devices=torch.cuda.device_count() + 2, device="cpu")

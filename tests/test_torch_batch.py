@@ -280,22 +280,22 @@ def test_max_subbatches_reads_the_environment():
 
 
 def test_batched_input_validation():
-    """tests/test_batch_api.py:186 on the port, plus what it does not
-    port: scene sharding, unknown keywords, and the engine options of
-    later slices."""
+    """tests/test_batch_api.py:186 on the port, plus the JAX package's
+    mesh errors (too few devices, a mesh without a "scenes" axis),
+    unknown keywords, and the engine options."""
     with pytest.raises(ValueError):
         progressivex_tpu_torch.findHomographiesBatched([np.zeros((3, 4))], device="cpu")
     with pytest.raises(ValueError):
         progressivex_tpu_torch.findTwoViewMotionsBatched([np.zeros((10, 3))], device="cpu")
     scene = _scenes(1)[0]
-    with pytest.raises(NotImplementedError, match="sharding"):
-        progressivex_tpu_torch.findHomographiesBatched([scene], n_devices=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="sharding"):
+    with pytest.raises(ValueError, match=r"need \d+ devices, have"):
+        progressivex_tpu_torch.findHomographiesBatched(
+            [scene], n_devices=torch.cuda.device_count() + 2, device="cpu")
+    with pytest.raises(ValueError, match="scenes"):
         progressivex_tpu_torch.findHomographiesBatched([scene], mesh=object(), device="cpu")
     with pytest.raises(TypeError):
         progressivex_tpu_torch.findHomographiesBatched([scene], not_a_kwarg=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        engine._check_slice(engine.EngineConfig(family="homography", hyp_axis="hyps"))
+    engine._check_slice(engine.EngineConfig(family="homography", hyp_axis="hyps"))
     with pytest.raises(ValueError, match="neighborhood"):
         engine._check_slice(engine.EngineConfig(family="homography", neighborhood="ball"))
     engine._check_slice(engine.EngineConfig(family="homography", neighborhood="grid"))

@@ -426,3 +426,39 @@ def test_essential_nan_rows_are_harmless(cuda):
     _check([g[ok] for g in got], [w[ok] for w in want])
     valid = ok  # a non-finite E is never valid (models/essential._minimal_batched)
     assert torch.equal(valid & torch.isfinite(got[0]), valid & torch.isfinite(want[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_launch_from_a_fresh_thread(cuda, family):
+    """A new host thread starts on device 0 and the library's CUDA runtime
+    launches on the thread's current device: the wrapper sets the
+    tensors' device for the launch, on every card there is (a device mesh
+    feeds each card from a thread of its own). Each launch is counted
+    once, with its rows."""
+    import threading
+
+    name = f"score_{family}"
+    for dev in [torch.device("cuda", i) for i in range(torch.cuda.device_count())]:
+        args = [t.to(dev) for t in _case(cuda, family=FAMILIES[family][0],
+                                         m=FAMILIES[family][1])]
+        out, errors = [], []
+
+        def launch():
+            try:
+                out.append(getattr(kscoring, f"{name}_cuda")(
+                    *args, TRUNC_SQ, EXPONENT, True, 4))
+                torch.cuda.synchronize(dev)
+            except Exception as e:  # noqa: BLE001 - re-raised below
+                errors.append(e)
+
+        before = (kscoring.LAUNCHES[name], kscoring.ROWS[name])
+        t = threading.Thread(target=launch)
+        t.start()
+        t.join(timeout=120)
+        assert not t.is_alive() and not errors, errors
+        assert (kscoring.LAUNCHES[name], kscoring.ROWS[name]) == (before[0] + 1,
+                                                                  before[1] + 1)
+        assert all(o.device == dev for o in out[0])
+        _check(out[0], getattr(kscoring, f"{name}_plain")(*args, TRUNC_SQ, EXPONENT,
+                                                          True, 4))
