@@ -66,7 +66,22 @@ Phases, each of which raises on failure:
      (2, 1) virtual mesh of the card, and over n_devices = the card count
      when there are several, each bit for bit phase 5's unsharded result,
      with both calls' seconds and every shard's host seconds and device
-     span (no synchronization inside a shard's thread).
+     span (no synchronization inside a shard's thread);
+  9. the real-image demo (examples/demo_real_images) on images rendered
+     here with numpy (render_h_pair: two 640 x 480 views of three planar
+     regions; render_facade: a 1024 x 768 facade of dashed lines along
+     three vanishing directions), their bytes and the demo's matches held
+     to REAL_IMAGES_DIGEST: the numpy detectors on the host, the demo's
+     homography fit on the card through score_homography (the launch
+     counts set to 0 just before it) with LiveProgress as its callback,
+     K >= 2 and ME within ME_SLACK of the JAX package's CPU ME on the same
+     matches, the same fit on the CPU (phase 4's rule), the line and
+     vanishing-point fits on the facade (K >= 4, K >= 2), and one profiled
+     H fit whose torch.profiler trace io/profiling.op_self_times reads
+     back: as many score_homography entries as the fit's launches, its
+     device time within 1% of the profile's; it prints each detector's
+     host seconds, each fit's seconds and the ten device operations with
+     the most self time and the ten most frequent.
 Phase 2 also holds each kernel against its plain version over rows, at
 the shapes the batched front ends give it, and score_fundamental at the
 essential path's shapes (restarts as rows, 409 five-point samples x 10
@@ -81,6 +96,7 @@ Each phase prints its seconds. It ends with the total seconds, a
 beside it, and exits non-zero without either. It imports no JAX.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -190,6 +206,171 @@ SYNTH_DIGEST = "7842d19eb3d5e9bfd13b700f23b32ec4579f4a2110b27664fd6c593f3e0a3c47
 SYNTH_SCENES = {"H": 19, "F": 18}
 JAX_CPU_ME_SYNTH = {"H": 0.003905216735107873, "F": 0.0381156596874729}
 SYNTH_ME_GATE = 0.08
+
+# Phase 9 (real images) renders its images with numpy from a fixed seed:
+# the card's machine has neither PIL nor OpenCV, and no photograph is
+# fetched. tests/test_torch_real_images.py loads these functions from this
+# file by path. Every step is plain float64 arithmetic (no LAPACK, no
+# trigonometry), and the images are quantized to 8 bits, as a photograph
+# is, so that every machine renders the same bytes.
+H_PAIR_SHAPE = (480, 640)  # AdelaideRMF breadcube's frames
+FACADE_SHAPE = (768, 1024)  # unihouse's
+# The H pair's planar regions: (x0, y0, x1, y1) in view 1, and the motion
+# into view 2 about the region's center, [[c, -s, dx], [s, c, dy], [p1, p2,
+# 1]] with (c, s) a scaled rotation (2, -3 and 1 degrees).
+H_REGIONS = (
+    ((40, 40, 300, 250), (1.02937, 0.03595, 22.0, 14.0, 1.5e-4, 0.0)),
+    ((340, 60, 600, 300), (0.96867, -0.05077, -26.0, 18.0, 0.0, 2e-4)),
+    ((120, 300, 520, 450), (0.99985, 0.01745, 8.0, -20.0, -1e-4, 1e-4)),
+)
+H_MATCH_TOL = 4.0  # px: a match farther from its region's homography is an outlier
+# The facade's two walls, each the unit square (u along the wall, v down it)
+# carried into the image by the homography of the corners (u, v) = (0, 0),
+# (1, 0), (1, 1), (0, 1): their horizontals run to a left and a right
+# vanishing point, their verticals to one far below. Each wall carries dark
+# dashed lines (a width of 0.01 of the wall, dashes 0.75 of a 0.15 period)
+# at u and v = 0.25, 0.5 and 0.75.
+FACADE_WALLS = (
+    ((70, 190), (500, 110), (506, 700), (86, 600)),
+    ((500, 110), (970, 210), (952, 590), (506, 700)),
+)
+FACADE_LINES = (0.25, 0.5, 0.75)
+
+
+def _blob_texture(rng, shape, n_blobs, box=None, sigma=3.0):
+    """Random smooth blobs (tests/test_detect.py's texture) centred inside
+    box (y0, y1, x0, x1), float64 in 0..255."""
+    h, w = shape
+    y0, y1, x0, x1 = box or (0, h, 0, w)
+    img = np.zeros(shape)
+    ys, xs = rng.uniform(y0, y1, n_blobs), rng.uniform(x0, x1, n_blobs)
+    amp = rng.uniform(40, 200, n_blobs)
+    r = int(4 * sigma)
+    yy, xx = np.mgrid[-r:r + 1, -r:r + 1]
+    for y, x, a in zip(ys, xs, amp):
+        cy, cx = int(y), int(x)
+        blob = a * np.exp(-((yy + cy - y) ** 2 + (xx + cx - x) ** 2) / (2 * sigma ** 2))
+        ya, xa = max(cy - r, 0), max(cx - r, 0)
+        yb, xb = min(cy + r + 1, h), min(cx + r + 1, w)
+        img[ya:yb, xa:xb] += blob[ya - cy + r:yb - cy + r, xa - cx + r:xb - cx + r]
+    return np.clip(img, 0, 255)
+
+
+def _inv3(m):
+    """The inverse of a 3 x 3 matrix by its adjugate."""
+    a, b, c, d, e, f, g, h, i = m.reshape(9)
+    adj = np.array([[e * i - f * h, c * h - b * i, b * f - c * e],
+                    [f * g - d * i, a * i - c * g, c * d - a * f],
+                    [d * h - e * g, b * g - a * h, a * e - b * d]])
+    return adj / (a * adj[0, 0] + b * adj[1, 0] + c * adj[2, 0])
+
+
+def _pull(h, shape):
+    """The points of view 1 that homography h carries to each pixel of a
+    view of `shape`: (x, y) [H, W] each."""
+    hi = _inv3(h)
+    ys, xs = np.mgrid[0:shape[0], 0:shape[1]].astype(float)
+    den = hi[2, 0] * xs + hi[2, 1] * ys + hi[2, 2]
+    return ((hi[0, 0] * xs + hi[0, 1] * ys + hi[0, 2]) / den,
+            (hi[1, 0] * xs + hi[1, 1] * ys + hi[1, 2]) / den)
+
+
+def _bilinear(img, x, y):
+    h, w = img.shape
+    x0 = np.clip(np.floor(x).astype(np.int64), 0, w - 2)
+    y0 = np.clip(np.floor(y).astype(np.int64), 0, h - 2)
+    fx, fy = x - x0, y - y0
+    return ((1 - fy) * ((1 - fx) * img[y0, x0] + fx * img[y0, x0 + 1])
+            + fy * ((1 - fx) * img[y0 + 1, x0] + fx * img[y0 + 1, x0 + 1]))
+
+
+def _quantize(img, rng, noise):
+    return np.clip(np.round(img + rng.normal(scale=noise, size=img.shape)), 0,
+                   255).astype(np.uint8)
+
+
+def render_h_pair(seed=0):
+    """Two 640 x 480 views of three blob-textured planar regions over a
+    blob-textured background, each region carried into view 2 by its own
+    homography (bilinear resampling), the background of view 2 another
+    texture (its matches are outliers), with 2 grey levels of noise:
+    (view 1, view 2) uint8 and the regions [((x0, y0, x1, y1), H)]."""
+    rng = np.random.default_rng(seed)
+    view1 = _blob_texture(rng, H_PAIR_SHAPE, 300)
+    view2 = _blob_texture(rng, H_PAIR_SHAPE, 300)
+    regions = []
+    for (x0, y0, x1, y1), (c, s, dx, dy, p1, p2) in H_REGIONS:
+        tex = _blob_texture(rng, H_PAIR_SHAPE, (x1 - x0) * (y1 - y0) // 150,
+                            (y0 - 8, y1 + 8, x0 - 8, x1 + 8)) * 0.8 + 30.0
+        view1[y0:y1, x0:x1] = tex[y0:y1, x0:x1]
+        cx, cy = (x0 + x1) / 2, (y0 + y1) / 2
+        to_c = np.array([[1.0, 0, -cx], [0, 1.0, -cy], [0, 0, 1.0]])
+        back = np.array([[1.0, 0, cx], [0, 1.0, cy], [0, 0, 1.0]])
+        h = back @ np.array([[c, -s, dx], [s, c, dy], [p1, p2, 1.0]]) @ to_c
+        px, py = _pull(h, H_PAIR_SHAPE)
+        inside = (px >= x0) & (px <= x1 - 1) & (py >= y0) & (py <= y1 - 1)
+        view2[inside] = _bilinear(tex, px[inside], py[inside])
+        regions.append(((x0, y0, x1, y1), h))
+    return _quantize(view1, rng, 2.0), _quantize(view2, rng, 2.0), regions
+
+
+def h_pair_labels(corrs, regions, tol=H_MATCH_TOL):
+    """Each correspondence's true label: 1 + the region that holds its
+    view-1 point when the region's homography carries that point within
+    `tol` px of its view-2 point, else 0 (outlier)."""
+    labels = np.zeros(len(corrs), np.int64)
+    x1 = np.c_[corrs[:, :2], np.ones(len(corrs))]
+    for k, ((x0, y0, xe, ye), h) in enumerate(regions):
+        p = x1 @ h.T
+        err = np.hypot(p[:, 0] / p[:, 2] - corrs[:, 2], p[:, 1] / p[:, 2] - corrs[:, 3])
+        inside = ((corrs[:, 0] >= x0) & (corrs[:, 0] < xe)
+                  & (corrs[:, 1] >= y0) & (corrs[:, 1] < ye))
+        labels[inside & (err <= tol)] = k + 1
+    return labels
+
+
+def _square_to(quad):
+    """The homography carrying the unit square's corners onto quad, in
+    closed form (Heckbert's square-to-quad mapping)."""
+    (x0, y0), (x1, y1), (x2, y2), (x3, y3) = (map(float, p) for p in quad)
+    dx1, dx2, dx3 = x1 - x2, x3 - x2, x0 - x1 + x2 - x3
+    dy1, dy2, dy3 = y1 - y2, y3 - y2, y0 - y1 + y2 - y3
+    den = dx1 * dy2 - dx2 * dy1
+    g = (dx3 * dy2 - dx2 * dy3) / den
+    h = (dx1 * dy3 - dx3 * dy1) / den
+    return np.array([[x1 - x0 + g * x1, x3 - x0 + h * x3, x0],
+                     [y1 - y0 + g * y1, y3 - y0 + h * y3, y0], [g, h, 1.0]])
+
+
+def render_facade(seed=0):
+    """A 1024 x 768 uint8 image of two building walls in perspective whose
+    dark dashed lines run along three vanishing directions, with one grey
+    level of noise."""
+    rng = np.random.default_rng(seed)
+    img = np.full(FACADE_SHAPE, 190.0)
+    for quad in FACADE_WALLS:
+        u, v = _pull(_square_to(quad), FACADE_SHAPE)
+        dark = np.zeros(FACADE_SHAPE, bool)
+        for at in FACADE_LINES:
+            dark |= (np.abs(u - at) < 0.005) & ((v % 0.15) < 0.1125)
+            dark |= (np.abs(v - at) < 0.004) & ((u % 0.15) < 0.1125)
+        img[dark & (u >= 0) & (u <= 1) & (v >= 0) & (v <= 1)] = 70.0
+    return _quantize(img, rng, 1.0)
+
+
+def real_image_digests(view1, view2, facade, corrs):
+    """SHA-256 of the H pair's bytes, the facade's and the matches' (float64)."""
+    import hashlib
+
+    def sha(*arrays):
+        h = hashlib.sha256()
+        for a in arrays:
+            h.update(np.ascontiguousarray(a).tobytes())
+        return h.hexdigest()
+
+    return {"h_pair": sha(view1, view2), "facade": sha(facade),
+            "matches": sha(np.asarray(corrs, np.float64))}
+
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s
 # outside the tensor cores.
@@ -1756,6 +1937,200 @@ def phase_mesh(torch, batched):
             "cross": cross, "calls": calls, "spreads": list(spreads.values())}
 
 
+# Phase 9's inputs: SHA-256 of the rendered images and of the demo's matches
+# on them (real_image_digests), which tests/test_torch_real_images.py
+# computes too, and the JAX package's misclassification of the demo's
+# homography fit on the same matches (the demo's keywords, random_seed 0) on
+# the CPU, against the rendered labels, from
+#   JAX_PLATFORMS=cpu PROGX_COMPILE_CACHE=0 python -c "import jax;
+#     jax.config.update('jax_platforms', 'cpu');
+#     import importlib.util, numpy as np;
+#     spec = importlib.util.spec_from_file_location('smoke', 'chip_smoke.py');
+#     cs = importlib.util.module_from_spec(spec); spec.loader.exec_module(cs);
+#     from progressivex_tpu.io.detect import harris_keypoints as hk, \
+#       patch_descriptors as pd, match_descriptors as md;
+#     from progressivex_tpu import findHomographies;
+#     from progressivex_tpu.io.metrics import misclassification;
+#     v1, v2, regions = cs.render_h_pair();
+#     im1, im2 = v1.astype(np.float32), v2.astype(np.float32);
+#     k1, k2 = hk(im1), hk(im2); m = md(pd(im1, k1), pd(im2, k2));
+#     corrs = np.concatenate([k1[m[:, 0]], k2[m[:, 1]]], axis=1);
+#     hs, labels = findHomographies(corrs, threshold=4.0, conf=0.5,
+#       spatial_coherence_weight=0.05, neighborhood_ball_radius=200.0,
+#       maximum_tanimoto_similarity=0.4, max_iters=1000, minimum_point_number=12,
+#       maximum_model_number=8, sampler_id=3, random_seed=0);
+#     print(len(corrs), hs.shape[0] // 3,
+#           misclassification(labels, cs.h_pair_labels(corrs, regions)))"
+# (431 matches, 3 planes). Gates: the H fit K >= 2 and ME <= JAX_CPU_ME_REAL_H
+# + ME_SLACK, lines K >= 4, vanishing points K >= 2 (the JAX demo's asserts),
+# the card against the CPU as phase 4.
+REAL_IMAGES_DIGEST = {
+    "h_pair": "2ec8b41738aa96b84c10cbe8e3c837c119c00f85237f7d03bdf81941faffc140",
+    "facade": "69a6005ad3cdcaf6a901ec0c1e8f6059c6f4a20df40cfa0893d24c01cf7db260",
+    "matches": "0b2fbff2586cae46fa210c189441ce76ddc46cfe9e33a6fc025065dcf2b3c331",
+}
+JAX_CPU_ME_REAL_H = 0.002320185614849146
+REAL_MIN_MODELS = {"H": 2, "L": 4, "V": 2}
+DETECTORS = ("canny", "hough_segments", "harris_keypoints", "patch_descriptors",
+             "match_descriptors")
+
+
+@contextlib.contextmanager
+def _detector_clock(detect):
+    """io/detect's detectors (the demo imports them when it runs) wrapped so
+    that each call adds its host seconds to the dict this yields."""
+    seconds = dict.fromkeys(DETECTORS, 0.0)
+    originals = {name: getattr(detect, name) for name in DETECTORS}
+
+    def clocked(name):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return originals[name](*args, **kw)
+            finally:
+                seconds[name] += time.perf_counter() - t0
+        return call
+
+    for name in DETECTORS:
+        setattr(detect, name, clocked(name))
+    try:
+        yield seconds
+    finally:
+        for name, fn in originals.items():
+            setattr(detect, name, fn)
+
+
+def _top_operations(ops, n=10):
+    """The n device operations (match text: name and annotations) with the
+    most self time, and the n most frequent: [(text, microseconds, count)]."""
+    by = {}
+    for text, us in ops:
+        t, c = by.get(text, (0.0, 0))
+        by[text] = (t + us, c + 1)
+    rows = [(text[:200], t, c) for text, (t, c) in by.items()]
+    return (sorted(rows, key=lambda r: -r[1])[:n], sorted(rows, key=lambda r: -r[2])[:n])
+
+
+def phase_real_images(torch):
+    """The real-image demo's own code (examples/demo_real_images) on the
+    rendered images: detection on the host, the H fit on the card through
+    score_homography with LiveProgress as its callback, the same fit on the
+    CPU, lines and vanishing points on the facade, and one profiled H fit
+    read back by io/profiling.op_self_times."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    from progressivex_tpu_torch.examples import demo_real_images as demo
+    from progressivex_tpu_torch.io import detect
+    from progressivex_tpu_torch.io.metrics import misclassification
+    from progressivex_tpu_torch.io.profiling import device_operations, op_self_times
+    from progressivex_tpu_torch.io.visualizer import LiveProgress
+    from progressivex_tpu_torch.kernels.scoring import LAUNCHES
+
+    failures = []
+    t0 = time.perf_counter()
+    view1, view2, regions = render_h_pair()
+    facade = render_facade()
+    render_s = time.perf_counter() - t0
+    # as io/detect.load_grayscale reads an 8-bit photograph
+    im1, im2, fac = (x.astype(np.float32) for x in (view1, view2, facade))
+    with _detector_clock(detect) as seconds:
+        corrs, source = demo.homography_inputs(im1, im2)
+        pts = demo.line_inputs(fac)
+        segs, weights = demo.vp_inputs(fac)
+    digests = real_image_digests(view1, view2, facade, corrs)
+    for name, want in REAL_IMAGES_DIGEST.items():
+        if digests[name] != want:
+            failures.append(f"{name} digest {digests[name]} is not {want}")
+    gt = h_pair_labels(corrs, regions)
+
+    def card(fit, *args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fit(*args, "cuda", **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    live = LiveProgress(log=True)
+    _zero_launches()
+    (hs, labels, stats), h_s = card(demo.fit_homographies, corrs, progress_callback=live,
+                                    with_statistics=True)
+    launches = LAUNCHES["score_homography"]
+    k = hs.shape[0] // 3
+    me = float(misclassification(labels, gt))
+    t = time.perf_counter()
+    hs_cpu, labels_cpu = demo.fit_homographies(corrs, "cpu")
+    cpu_s = time.perf_counter() - t
+    k_cpu = hs_cpu.shape[0] // 3
+    disagreement = _label_disagreement(labels, labels_cpu, k) if k_cpu == k else 1.0
+    _zero_launches()
+    (lines, _), lines_s = card(demo.fit_lines, pts)
+    _no_launches("real-image lines")
+    (vps, _), vps_s = card(demo.fit_vanishing_points, segs, weights)
+    _no_launches("real-image vanishing points")
+
+    # one profiled H fit, read back from its trace
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        _zero_launches()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     on_trace_ready=tensorboard_trace_handler(tmp)) as prof:
+            demo.fit_homographies(corrs, "cuda")
+            torch.cuda.synchronize()
+        prof_launches = LAUNCHES["score_homography"]
+        ops = op_self_times(tmp)
+    kineto_us = sum(e.duration_ns() for e in device_operations(
+        prof.profiler.kineto_results.events())) / 1e3
+    trace_us = sum(us for _, us in ops)
+    trace_launches = sum("score_homography" in text for text, _ in ops)
+    by_time, by_count = _top_operations(ops)
+    untagged = [us for text, us in ops if "progx_" not in text]
+
+    out = {
+        "digests": digests, "source": source, "render_s": render_s,
+        "detector_host_s": seconds, "matches": len(corrs),
+        "true_labels": np.bincount(gt).tolist(), "line_points": len(pts),
+        "segments": len(segs),
+        "H": {"models": k, "me": me, "jax_cpu_me": JAX_CPU_ME_REAL_H,
+              "launches": launches, "rounds": stats.rounds_run,
+              "progress_events": len(live.events), "card_s": h_s,
+              "cpu_models": k_cpu, "cpu_me": float(misclassification(labels_cpu, gt)),
+              "label_disagreement": disagreement, "cpu_s": cpu_s},
+        "L": {"models": lines.shape[0], "card_s": lines_s},
+        "V": {"models": vps.shape[0], "card_s": vps_s},
+        "profile": {"launches": prof_launches, "trace_launches": trace_launches,
+                    "trace_device_us": trace_us, "kineto_device_us": kineto_us,
+                    "device_ops": len(ops), "outside_phase_scopes_ops": len(untagged),
+                    "outside_phase_scopes_us": sum(untagged)},
+    }
+    print("real images", json.dumps(out), flush=True)
+    for label, rows in (("self time", by_time), ("count", by_count)):
+        for text, us, count in rows:
+            print(f"real images top by {label}: {us:.1f} us {count} x {text}", flush=True)
+    for p, got in (("H", k), ("L", lines.shape[0]), ("V", vps.shape[0])):
+        if got < REAL_MIN_MODELS[p]:
+            failures.append(f"{p}: {got} models, fewer than {REAL_MIN_MODELS[p]}")
+    if me > JAX_CPU_ME_REAL_H + ME_SLACK:
+        failures.append(f"H: ME {me} above the JAX package's {JAX_CPU_ME_REAL_H} + {ME_SLACK}")
+    if launches <= 0:
+        failures.append("H: score_homography was not launched")
+    if k_cpu != k or disagreement > LABEL_DISAGREEMENT_MAX:
+        failures.append(f"H: {k} models on the card, {k_cpu} on the CPU, labels apart "
+                        f"on {disagreement:.4f}")
+    if len(live.events) != stats.rounds_run:
+        failures.append(f"LiveProgress saw {len(live.events)} events in "
+                        f"{stats.rounds_run} rounds")
+    if trace_launches != prof_launches or prof_launches <= 0:
+        failures.append(f"op_self_times holds {trace_launches} score_homography "
+                        f"launches, the fit made {prof_launches}")
+    if abs(trace_us - kineto_us) > 0.01 * kineto_us:
+        failures.append(f"op_self_times totals {trace_us} us of device time, the "
+                        f"profile {kineto_us} us")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"launches": launches}
+
+
 FAILURES = []
 
 
@@ -1844,6 +2219,7 @@ def main():
     _timed("7 grid", phase_grid, torch)
     _timed("7 sync", phase_moves_sync, torch)
     mesh = _timed("8 mesh", phase_mesh, torch, batched)
+    real = _timed("9 real images", phase_real_images, torch)
     print(f"total seconds {time.perf_counter() - t_start:.3f}", flush=True)
     if FAILURES:
         _fail("; ".join(FAILURES))
@@ -1870,6 +2246,7 @@ def main():
     for k in kernels:
         k["launches_dataset_pass"] = dataset_pass["launches"][k["name"]]
         k["launches_mesh"] = mesh["launches"][k["name"]]
+    kernels[0]["launches_real_images"] = real["launches"]
     print("bench", json.dumps(bench), flush=True)
     print("bench essential", json.dumps(bench_e), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,5 +1,6 @@
 """Loaders for the bundled ground-truth scenes — numpy-only copies of
-progressivex_tpu/io/data.py::load_corr_scene and load_tless_scene.
+progressivex_tpu/io/data.py::load_corr_scene, load_tless_scene and
+list_scenes.
 
 Formats (reference `progx_utils.h:32-96`): correspondence scenes, rows
 `x1 y1 1 x2 y2 1 label`; the T-LESS pose scene, `tless.txt` rows
@@ -60,3 +61,13 @@ def load_tless_scene(root: str = DEFAULT_ROOT):
     if poses.shape[0] != p:
         raise ValueError(f"tless_poses.txt: expected {p} poses, got {poses.shape[0]}")
     return pts[:, :2], pts[:, 2:5], K, poses
+
+
+def list_scenes(root: str = DEFAULT_ROOT):
+    """The scene names under `root`: its directories <name> that hold a
+    <name>.txt file, sorted."""
+    return sorted(
+        n
+        for n in os.listdir(root)
+        if os.path.isfile(os.path.join(root, n, f"{n}.txt"))
+    )

@@ -11,11 +11,21 @@ self CPU time of each `aten::` operation. Time outside every scope of
 whose rollup reads the same five scopes) is `other_ms`. It reads the raw
 profiler events by time and correlation, not the profiler's event tree,
 which takes minutes to build for the 10^5 operations of one fit.
+
+`op_self_times` is the counterpart of the JAX package's function of that
+name for a trace that `torch.profiler` wrote: (match text, self time)
+pairs, one a device operation, or one a host operation where the trace
+holds none, each with the names of the annotations around it (the phase
+scopes, a hand-written kernel's name) so that a phase tag matches it.
 """
 
 from __future__ import annotations
 
 import collections
+import glob
+import gzip
+import json
+import os
 
 import torch
 
@@ -24,24 +34,98 @@ DEFAULT_SCOPES = ("progx_proposal", "progx_sampling", "progx_graph",
 
 
 def _self_times(ops):
-    """(start, end, thread) host operations -> (start, thread, self ns):
-    each one's duration less that of the operations nested in it."""
+    """(start, end, thread, *extra) operations -> (start, thread, self,
+    *extra): each one's duration less that of the operations nested in
+    it on its thread (a per-thread stack sweep)."""
     by_thread = collections.defaultdict(list)
-    for start, end, thread in ops:
-        by_thread[thread].append((start, end))
+    for start, end, thread, *extra in ops:
+        by_thread[thread].append((start, end, extra))
     out = []
     for thread, evs in by_thread.items():
         evs.sort(key=lambda x: (x[0], -x[1]))
         stack, selfs = [], []
-        for start, end in evs:
+        for start, end, extra in evs:
             while stack and stack[-1][0] <= start:
                 stack.pop()
             if stack:
                 selfs[stack[-1][1]][2] -= end - start
-            selfs.append([start, thread, end - start])
+            selfs.append([start, thread, end - start, extra])
             stack.append((end, len(selfs) - 1))
-        out.extend((s, t, max(ns, 0)) for s, t, ns in selfs)
+        out.extend((s, t, max(ns, 0), *extra) for s, t, ns, extra in selfs)
     return out
+
+
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _enclosing(queries, spans):
+    """For each (time, thread, key) of `queries`, the names of the spans
+    (start, end, thread, name) of its thread that hold the time, outermost
+    first: {key: [name, ...]}."""
+    spans_by = collections.defaultdict(list)
+    for start, end, thread, name in spans:
+        spans_by[thread].append((start, end, name))
+    queries_by = collections.defaultdict(list)
+    for t, thread, key in queries:
+        queries_by[thread].append((t, key))
+    out = {}
+    for thread, qs in queries_by.items():
+        qs.sort(key=lambda q: q[0])
+        sp = sorted(spans_by[thread], key=lambda x: (x[0], -x[1]))
+        stack, i = [], 0
+        for t, key in qs:
+            while i < len(sp) and sp[i][0] <= t:
+                stack.append(sp[i])
+                i += 1
+            stack = [s for s in stack if s[1] > t]
+            out[key] = [s[2] for s in stack]
+    return out
+
+
+def op_self_times(trace_dir: str):
+    """The newest torch.profiler trace under `trace_dir` (`*.pt.trace.json`
+    or `*.pt.trace.json.gz`, as `tensorboard_trace_handler` or
+    `export_chrome_trace` writes it) as [(match_text, self_time_us)]. With
+    device operations in the trace (kernels, copies, sets), one pair each,
+    its duration; else one pair a host operation (`cpu_op`), its duration
+    less that of the host operations nested in it on its thread. The text
+    is the event's name, then the names of the annotations
+    (`record_function` ranges) around it on the host, outermost first: for
+    a device operation, those around the call that launched it. [] when
+    there is no trace."""
+    traces = [p for pat in ("*.pt.trace.json", "*.pt.trace.json.gz")
+              for p in glob.glob(os.path.join(trace_dir, "**", pat), recursive=True)]
+    if not traces:
+        return []
+    newest = max(traces, key=lambda p: (os.path.getmtime(p), p))
+    with (gzip.open(newest, "rt") if newest.endswith(".gz") else open(newest)) as f:
+        events = [e for e in json.load(f).get("traceEvents", []) if e.get("ph") == "X"]
+
+    def track(e):
+        return (e.get("pid"), e.get("tid"))
+
+    notes = [(e["ts"], e["ts"] + e.get("dur", 0.0), track(e), e["name"])
+             for e in events if e.get("cat") == "user_annotation"]
+    device = [e for e in events if e.get("cat") in DEVICE_CATEGORIES]
+    if device:
+        # A device operation is launched by the host call of its correlation id.
+        launch = {e["args"]["correlation"]: e for e in events
+                  if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                  and "correlation" in e.get("args", {})}
+        queries = []
+        for i, e in enumerate(device):
+            host = launch.get(e.get("args", {}).get("correlation"))
+            if host is not None:
+                queries.append((host["ts"], track(host), i))
+        around = _enclosing(queries, notes)
+        return [(" ".join([e["name"], *around.get(i, [])]), float(e.get("dur", 0.0)))
+                for i, e in enumerate(device)]
+    ops = [(e["ts"], e["ts"] + e.get("dur", 0.0), track(e), i)
+           for i, e in enumerate(events) if e.get("cat") == "cpu_op"]
+    selfs = _self_times(ops)
+    around = _enclosing([(start, thread, i) for start, thread, _, i in selfs], notes)
+    return [(" ".join([events[i]["name"], *around[i]]), float(us))
+            for _, _, us, i in selfs]
 
 
 def _attribute(items, scope_spans, scopes):

@@ -19,7 +19,7 @@ from progressivex_tpu_torch.io.metrics import misclassification
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEMOS = ("demo_multi_homography", "demo_multi_two_view_motion", "demo_multi_lines",
-         "demo_multi_vanishing_point", "demo_multi_pose6d")
+         "demo_multi_vanishing_point", "demo_multi_pose6d", "demo_real_images")
 ME_SLACK = 0.03
 
 

@@ -6,7 +6,8 @@ and for the JAX package.
                               [--seeds 10] [--first-seed 0]
                               [--out hyp_spread_torch.json]
   python3 tools/hyp_spread.py --package jax [--scene unihouse] [--hyp 1,4]
-                              [--seeds 4] [--out hyp_spread_jax.json]
+                              [--seeds 4 | --seed-list 0,8] [--replay]
+                              [--replay-device cuda,cpu] [--out hyp_spread_jax.json]
 
 Every fit is one bundled scene under its AdelaideRMF protocol's engine
 (H: unihouse, oldclassicswing, unionhouse; F: book, breadcube, cubetoy,
@@ -22,8 +23,11 @@ seed's ME and model count, their mean and range, and the samples drawn a
 round. `--replay` (with `--package jax`, on a card) also fits the port's
 engine on the samples each JAX run drew (its sort, graph and replicas'
 fold_in draws reproduced), so that the two packages are compared on the
-same samples. `--jax-graph` (with `--package torch`) builds the port's kNN
-graph with the JAX package's `knn_graph`.
+same samples; `--replay-device cuda,cpu` refits on each device named
+(`cpu`: the scoring kernel's plain version; the first device's fit under
+"port_on_jax_samples", another's under "port_on_jax_samples_<device>").
+`--jax-graph` (with `--package torch`) builds the port's kNN graph with
+the JAX package's `knn_graph`.
 """
 
 import argparse
@@ -137,7 +141,7 @@ def _jax_labels(res, i, n):
     return remap[np.asarray(res.labels[i])][:n], int(active.sum())
 
 
-def _jax_fits(name, hyp, seeds, replay=False, no_moves=False):
+def _jax_fits(name, hyp, seeds, replay=False, no_moves=False, replay_devices=("cuda",)):
     import jax
     import jax.numpy as jnp
 
@@ -164,14 +168,37 @@ def _jax_fits(name, hyp, seeds, replay=False, no_moves=False):
                "round_log": {f: np.asarray(getattr(res.round_log, f)[i])[:rounds].tolist()
                              for f in res.round_log._fields}}
         if replay:
-            run["port_on_jax_samples"] = _replay(family, cfg, params, data, mask, gt, n,
-                                                 keys[i], hyp, labels, k)
+            for j, dev in enumerate(replay_devices):
+                run["port_on_jax_samples" + ("" if j == 0 else f"_{dev}")] = _replay(
+                    family, cfg, params, data, mask, gt, n, keys[i], hyp, labels, k, dev)
         out.append(run)
     return out
 
 
-def _replay(jfamily, jcfg, jparams, data, mask, gt, n, key, hyp, jax_labels, jax_k):
-    """The port's fit_rows on the card fed the samples the JAX replicas drew
+def _jax_sorted(data, mask, use_band):
+    """(data, mask, perm) as the JAX fit holds them: with `use_band`, sorted
+    along the principal axis as progressivex_tpu/core/engine.py:516-545
+    sorts them (perm: sorted position -> caller's point)."""
+    import jax.numpy as jnp
+
+    d, m = jnp.array(data), jnp.array(mask)
+    if not use_band:
+        return d, m, jnp.arange(len(mask))
+    mf = m.astype(d.dtype)
+    mu = jnp.sum(d * mf[:, None], axis=0) / jnp.maximum(jnp.sum(mf), 1.0)
+    xc = (d - mu) * mf[:, None]
+    cov = xc.T @ xc
+    v = jnp.ones((d.shape[1],), d.dtype)
+    for _ in range(8):
+        v = cov @ v
+        v = v / jnp.maximum(jnp.linalg.norm(v), 1e-20)
+    perm = jnp.argsort(jnp.where(m, (d - mu) @ v, jnp.inf))
+    return d[perm], m[perm], perm
+
+
+def _replay(jfamily, jcfg, jparams, data, mask, gt, n, key, hyp, jax_labels, jax_k,
+            device="cuda"):
+    """The port's fit_rows on `device` fed the samples the JAX replicas drew
     for `key` (progressivex_tpu/core/engine.py:516-551 sorts and builds the
     graph, :850-880 draws, with fold_in(key, h) a replica)."""
     import dataclasses
@@ -187,19 +214,8 @@ def _replay(jfamily, jcfg, jparams, data, mask, gt, n, key, hyp, jax_labels, jax
     from progressivex_tpu_torch.io.metrics import misclassification
     from progressivex_tpu_torch.models import get_family
 
-    d, m = jnp.array(data), jnp.array(mask)
     use_band = jcfg.potts_band > 0 and len(mask) > 128 + 2 * jcfg.potts_band
-    if use_band:  # the JAX fit's principal-axis sort, as engine.fit computes it
-        mf = m.astype(d.dtype)
-        mu = jnp.sum(d * mf[:, None], axis=0) / jnp.maximum(jnp.sum(mf), 1.0)
-        xc = (d - mu) * mf[:, None]
-        cov = xc.T @ xc
-        v = jnp.ones((d.shape[1],), d.dtype)
-        for _ in range(8):
-            v = cov @ v
-            v = v / jnp.maximum(jnp.linalg.norm(v), 1e-20)
-        perm = jnp.argsort(jnp.where(m, (d - mu) @ v, jnp.inf))
-        d, m = d[perm], m[perm]
+    d, m, perm = _jax_sorted(data, mask, use_band)
     samp_idx, samp_mask = knn_graph(d, m, jparams.neighborhood_radius,
                                     max(jcfg.knn_k, jcfg.sampler_k))
     idx, ok = [], []
@@ -216,12 +232,12 @@ def _replay(jfamily, jcfg, jparams, data, mask, gt, n, key, hyp, jax_labels, jax
            torch.zeros(1, hyp, 0, b, dtype=torch.bool))
     cfg = convert.engine_config(dataclasses.asdict(jcfg))
     params = convert.runtime_params(jparams._asdict())
-    card = torch.device("cuda", 0)
-    tdata = torch.as_tensor(data, device=card)[None]
-    tmask = torch.as_tensor(mask, device=card)[None]
+    dev = torch.device(device)
+    tdata = torch.as_tensor(data, device=dev)[None]
+    tmask = torch.as_tensor(mask, device=dev)[None]
     perm_port, _ = engine.spatial_order(tdata, tmask)
     res = engine.fit_rows(get_family(jfamily.name), cfg, params, tdata, tmask,
-                          torch.ones(1, len(mask), device=card), presampled=pre)
+                          torch.ones(1, len(mask), device=dev), presampled=pre)
     one = engine.row_result(res, 0)
     _, labels = engine.compact_result(one, n)
     return {"me": float(misclassification(labels, gt)), "n_models": int(one.n_models),
@@ -241,9 +257,14 @@ def main():
     ap.add_argument("--seeds", type=int, default=10, help="how many seeds")
     ap.add_argument("--first-seed", type=int, default=0,
                     help="the first seed (seeds first-seed .. first-seed + seeds - 1)")
+    ap.add_argument("--seed-list", default=None,
+                    help="comma separated seeds, in place of --first-seed and --seeds")
     ap.add_argument("--replay", action="store_true",
                     help="with --package jax: also fit the port on the card on each "
                          "JAX run's own samples")
+    ap.add_argument("--replay-device", default="cuda",
+                    help="with --replay: the devices of the port's fits, comma separated "
+                         "(cuda, cpu)")
     ap.add_argument("--jax-graph", action="store_true",
                     help="with --package torch: build the fits' kNN graph (the sampler's "
                          "neighbourhoods and the Potts adjacency) with the JAX package's "
@@ -258,7 +279,8 @@ def main():
 
         print("jax devices", jax.devices(), flush=True)
         def fits(name, hyp, seeds):
-            return _jax_fits(name, hyp, seeds, args.replay, args.no_moves)
+            return _jax_fits(name, hyp, seeds, args.replay, args.no_moves,
+                             args.replay_device.split(","))
     else:
         import torch
 
@@ -269,7 +291,8 @@ def main():
 
             engine.knn_graph = _jax_knn_graph
         fits = _torch_fits
-    seeds = list(range(args.first_seed, args.first_seed + args.seeds))
+    seeds = ([int(x) for x in args.seed_list.split(",")] if args.seed_list
+             else list(range(args.first_seed, args.first_seed + args.seeds)))
     lines = []
     for name in args.scene or ["unihouse"]:
         for hyp in (int(h) for h in args.hyp.split(",")):
