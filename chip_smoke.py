@@ -81,8 +81,24 @@ Phases, each of which raises on failure:
      back: as many score_homography entries as the fit's launches, its
      device time within 1% of the profile's; it prints each detector's
      host seconds, each fit's seconds and the ten device operations with
-     the most self time and the ten most frequent.
-Phase 2 also holds each kernel against its plain version over rows, at
+     the most self time and the ten most frequent (that fit eager, as
+     op_self_times needs);
+ 10. the compiled fit (core/graphs.py): H on its three scenes, F on its
+     three, E two-0, lines-0, vp-0, T-LESS, phase 5's batched H and F and
+     the dataset pass's H 2304 bucket, each in its eager form and as CUDA
+     graphs (cold, then warm), every FitResult and launch count bit for
+     bit the eager run's, at most two host reads a round and none from
+     the captured code, with cold, warm and eager seconds, warm-up and
+     capture seconds, peak reserved memory and the busy share of a warm
+     run; then cfg.unroll_rounds (rounds and tail in one graph) against
+     the per-round graphs.
+Phases 3-9 run the fits as CUDA graphs, the port's default on the card;
+phase 6's phase times, phase 7's timed moves and phase 9's profiled fit
+run eagerly (core/graphs.eager), since they time operations inside a fit.
+Phase 2 also captures one launch of each kernel in a CUDA graph at a
+main-path shape (H [1 x 256, 2304], F [4 x 1536, 256]) and holds the
+replay bit for bit to a direct launch, and its tally to one launch. It
+also holds each kernel against its plain version over rows, at
 the shapes the batched front ends give it, and score_fundamental at the
 essential path's shapes (restarts as rows, 409 five-point samples x 10
 solutions), with rows of NaN and inf descriptors among them, both
@@ -846,7 +862,68 @@ def phase_kernel(torch, dev):
                torch, dev, "score_homography", ("unihouse",) * 4, 1, 256, 36.0, 2.0, rng),
            "score_fundamental": _row_kernel_cases(
                torch, dev, "score_fundamental", ("book",) * 8, 1, 1536, tau_f, 1.0, rng)}
-    return out, rows, essential, synth, hyp
+    # One launch of each kernel captured in a CUDA graph (the compiled
+    # fit's form, core/graphs.py) at a main-path shape, replayed.
+    captured = {
+        "score_homography": _captured_launch_case(
+            torch, dev, "score_homography", ("unihouse",), 1, 256, 36.0, 2.0, rng),
+        "score_fundamental": _captured_launch_case(
+            torch, dev, "score_fundamental", ("book",), 4, 1536, tau_f, 1.0, rng)}
+    return out, rows, essential, synth, hyp, captured
+
+
+def _captured_launch_case(torch, dev, name, lane_scenes, restarts, b, trunc_sq,
+                          exponent, rng):
+    """One launch of the kernel `name` through its wrapper, captured in a
+    CUDA graph on a side stream (after a warm-up launch) as core/graphs.py
+    captures it, then replayed into outputs overwritten with NaN: every
+    output bit for bit a direct launch's on the same inputs, the capture's
+    tally one launch of `rows` rows, and a replay adding exactly that to
+    LAUNCHES and ROWS."""
+    from progressivex_tpu_torch.kernels import scoring as ks
+    from progressivex_tpu_torch.models import get_family
+
+    fn = getattr(ks, f"{name}_cuda")
+    family = get_family(name.removeprefix("score_"))
+    lanes = [_scene_tensors(torch, dev, s, rng) for s in lane_scenes]
+    rows = [j for _ in range(restarts) for j in range(len(lanes))]
+    data = torch.stack([lanes[j][0] for j in rows])
+    pmask = torch.stack([lanes[j][1] for j in rows])
+    compound = torch.stack([lanes[j][2] for j in rows])
+    descs = torch.stack([_minimal_descs(torch, family, lanes[j][0], lanes[j][3], b, rng)
+                         for j in rows]).contiguous()
+    tau = torch.full((len(rows),), trunc_sq, device=dev)
+    has = torch.ones(len(rows), dtype=torch.bool, device=dev)
+    args = (data, descs, compound, pmask, tau, exponent, has, 4)
+    direct = fn(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), ks.recording():
+        fn(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with ks.recording() as tally, torch.cuda.stream(side):
+        graph.capture_begin(capture_error_mode="thread_local")
+        out = fn(*args)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    for t in out:
+        t.fill_(-1 if t.dtype == torch.int32 else float("nan"))
+    before = (dict(ks.LAUNCHES), dict(ks.ROWS))
+    graph.replay()
+    ks.add_counts(tally)
+    torch.cuda.synchronize()
+    same = [torch.equal(g.view(torch.int32), w.view(torch.int32))
+            for g, w in zip(out, direct)]
+    added = (ks.LAUNCHES[name] - before[0][name], ks.ROWS[name] - before[1][name])
+    case = {"kernel": name, "rows": len(rows), "shape": [b, data.shape[1]],
+            "bit_equal": same, "tally": list(tally), "counted": list(added)}
+    print("kernel captured launch", json.dumps(case), flush=True)
+    if not all(same):
+        raise AssertionError(f"{name}: the replayed launch differs from a direct one: {same}")
+    if tally != [(name, len(rows))] or added != (1, len(rows)):
+        raise AssertionError(f"{name}: captured launch tallied {tally}, counted {added}")
+    return case
 
 
 PATHS = {
@@ -1622,16 +1699,18 @@ def phase_grid(torch):
 def phase_moves_sync(torch):
     """The row-axis split and merge moves of two batched calls, each move
     run under torch.cuda.set_sync_debug_mode("warn") and timed on the card
-    (synchronized before and after): findEssentialMatricesBatched on the
-    two-motion gauntlet scenes 0-3 (12 rows at 512 points, dense
-    adjacency, two split rounds) and findHomographiesBatched on the
-    synthetic 2304 bucket (banded adjacency, one split round). Prints
-    every synchronization with its source line; fails if one comes from
-    core/pearl.py, the moves' own code."""
+    (synchronized before and after, so the calls run eagerly, inside
+    core/graphs.eager()): findEssentialMatricesBatched on the two-motion
+    gauntlet scenes 0-3 (12 rows at 512 points, dense adjacency, two split
+    rounds) and findHomographiesBatched on the synthetic 2304 bucket
+    (banded adjacency, one split round). Then the same two calls as CUDA
+    graphs, the moves inside the captured tail, under the same mode.
+    Prints every synchronization with its source line; fails if one comes
+    from core/pearl.py, the moves' own code."""
     import warnings
 
     import progressivex_tpu_torch
-    from progressivex_tpu_torch.core import engine
+    from progressivex_tpu_torch.core import engine, graphs
     from progressivex_tpu_torch.eval import extras
     from progressivex_tpu_torch.eval.adelaide import scene_kwargs
     from progressivex_tpu_torch.io.data import load_corr_scene
@@ -1666,19 +1745,26 @@ def phase_moves_sync(torch):
     gauntlet = [extras.gauntlet_scene("two", s)[0] for s in range(4)]
     synth = _synth_roots()["H"]
     big = [load_corr_scene(n, root=synth)[0] for n in ("bonhall", "johnssonb", "unihouse")]
-    try:
-        for name, fn in moves.items():
-            setattr(engine, name, watched(name, fn))
+    def calls():
         progressivex_tpu_torch.findEssentialMatricesBatched(
             gauntlet, K, K, **extras.ESSENTIAL_KW, **E_BATCHED_KW, random_seed=0)
         progressivex_tpu_torch.findHomographiesBatched(
             big, **scene_kwargs(2084, "H"), random_seed=0)
+
+    try:
+        for name, fn in moves.items():
+            setattr(engine, name, watched(name, fn))
+        with graphs.eager():
+            calls()
     finally:
         for name, fn in moves.items():
             setattr(engine, name, fn)
-    res = {"moves": times, "synchronizations": syncs}
+    _, graph_syncs = _sync_sites(torch, calls)
+    res = {"moves": times, "synchronizations": syncs,
+           "graph_form_synchronizations": graph_syncs}
     print("moves sync", json.dumps(res), flush=True)
-    own = {k: v for k, v in syncs.items() if "core/pearl.py" in k}
+    own = {k: v for src in (syncs, graph_syncs) for k, v in src.items()
+           if "core/pearl.py" in k}
     if own:
         raise AssertionError(f"the moves synchronize with the host: {own}")
     return res
@@ -2021,6 +2107,7 @@ def phase_real_images(torch):
 
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
+    from progressivex_tpu_torch.core import graphs
     from progressivex_tpu_torch.examples import demo_real_images as demo
     from progressivex_tpu_torch.io import detect
     from progressivex_tpu_torch.io.metrics import misclassification
@@ -2070,11 +2157,13 @@ def phase_real_images(torch):
     (vps, _), vps_s = card(demo.fit_vanishing_points, segs, weights)
     _no_launches("real-image vanishing points")
 
-    # one profiled H fit, read back from its trace
+    # one profiled H fit, read back from its trace; eager, since the
+    # trace's annotations come from the host calls that a graph's replay
+    # does not make (io/profiling.op_self_times)
     with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
         _zero_launches()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     on_trace_ready=tensorboard_trace_handler(tmp)) as prof:
+                     on_trace_ready=tensorboard_trace_handler(tmp)) as prof, graphs.eager():
             demo.fit_homographies(corrs, "cuda")
             torch.cuda.synchronize()
         prof_launches = LAUNCHES["score_homography"]
@@ -2129,6 +2218,205 @@ def phase_real_images(torch):
     if failures:
         raise AssertionError("; ".join(failures))
     return {"launches": launches}
+
+
+def _fit_fields(res):
+    """The bytes of every tensor of a FitResult (round log included), for
+    a bit-for-bit comparison."""
+    out = {}
+    for f in res._fields:
+        v = getattr(res, f)
+        if f == "round_log":
+            for name, col in zip(v._fields, v):
+                out[f"round_log.{name}"] = col.cpu().numpy().tobytes()
+        elif hasattr(v, "cpu"):
+            out[f] = v.cpu().numpy().tobytes()
+    return out
+
+
+def _compiled_paths():
+    """Phase 10's paths: (label, call) with call() running the front end
+    as phases 3, 5 and 7 run it."""
+    import progressivex_tpu_torch as px
+    from progressivex_tpu_torch.eval import adelaide, extras
+    from progressivex_tpu_torch.io.data import load_corr_scene
+
+    def single(problem, scene):
+        corrs = load_corr_scene(scene)[0]
+        return lambda: _fit(problem, corrs)
+
+    def new(problem, name):
+        entry, _, kw = _new_path(problem)
+        inputs, _, extra = _new_scene(name)
+        if problem == "P":
+            return lambda: getattr(px, entry)(*inputs, extra, **kw, random_seed=0)
+        return lambda: getattr(px, entry)(*inputs, **kw, random_seed=0)
+
+    prep = adelaide._prepare("H", _synth_roots()["H"], 1, None, None)
+    bucket = max(prep.plan, key=lambda b: b.n_pad)
+    paths = [(f"H {s}", single("H", s)) for s in PATHS["H"][2]]
+    paths += [(f"F {s}", single("F", s)) for s in PATHS["F"][2]]
+    paths += [("E two-0", lambda: _essential_fit("two-0")),
+              ("L lines-0", new("L", "lines-0")), ("V vp-0", new("V", "vp-0")),
+              ("P tless", new("P", "tless")),
+              ("H batched", lambda: _batched("H", PATHS["H"][2])),
+              ("F batched", lambda: _batched("F", PATHS["F"][2])),
+              (f"H pass bucket {bucket.n_pad}",
+               lambda: adelaide._run(prep, bucket, 0, "cuda", None))]
+    return paths
+
+
+def _record_fits(engine):
+    """Patch engine.fit_rows to keep every FitResult it returns; returns
+    (the list, a function that undoes the patch)."""
+    orig, seen = engine.fit_rows, []
+
+    def recording(*a, **k):
+        res = orig(*a, **k)
+        seen.append(res)
+        return res
+
+    engine.fit_rows = recording
+    return seen, lambda: setattr(engine, "fit_rows", orig)
+
+
+def _round_read_sites(sites):
+    """The entries of `sites` at the round loop's two host reads in
+    core/graphs.py (the lines that read a flag with bool())."""
+    import linecache
+
+    out = {}
+    for site, n in sites.items():
+        path, _, line = site.rpartition(":")
+        if path.endswith("core/graphs.py") and "bool(" in linecache.getline(path, int(line)):
+            out[site] = n
+    return out
+
+
+def phase_compiled_fit(torch):
+    """The compiled fit (core/graphs.py) against the eager fit on the card,
+    path by path (`_compiled_paths`), the launch counts set to 0 just
+    before each run and read after: the eager form (inside graphs.eager())
+    once, then the graph form cold (every graph dropped first: warm-up +
+    capture + replay) and warm three times. Every FitResult of the graph
+    form's runs (descriptors, labels, energy, round log, samples drawn,
+    models, every field) and the kernels' LAUNCHES and ROWS must equal
+    the eager run's bit for bit. One more warm run under
+    torch.cuda.set_sync_debug_mode("warn") counts the host reads: at most
+    two a round, at the round loop's reads in core/graphs.py, and none
+    from core/pearl.py, ops/labeling.py or kernels/scoring.py; one warm
+    run under torch.profiler gives the device's busy share (device
+    operations' time over the wall time, as tools/profile_torch_fit.py
+    takes it). Prints, a path: eager, cold (and of it warm-up and
+    capture) and warm (median) seconds, host reads a round, peak
+    reserved memory of each form and the busy share. Then H on
+    oldclassicswing with cfg.unroll_rounds (all rounds and the tail in one
+    graph) against the per-round graphs, bit for bit."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from progressivex_tpu_torch.core import engine, graphs
+    from progressivex_tpu_torch.io.data import load_corr_scene
+    from progressivex_tpu_torch.io.profiling import device_operations
+    from progressivex_tpu_torch.kernels.scoring import LAUNCHES, ROWS
+
+    def run(call):
+        """(seconds, FitResults' bytes, launches, rows) of one call."""
+        seen, undo = _record_fits(engine)
+        for counts in (LAUNCHES, ROWS):
+            for k in counts:
+                counts[k] = 0
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            undo()
+        passes = sum(int(r.rounds_run.max()) for r in seen)
+        return wall, [_fit_fields(r) for r in seen], dict(LAUNCHES), dict(ROWS), passes
+
+    failures, table = [], []
+    total = {k: 0 for k in LAUNCHES}
+    for label, call in _compiled_paths():
+        graphs.clear()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with graphs.eager():
+            eager_s, want, want_l, want_r, passes = run(call)
+        eager_mem = torch.cuda.max_memory_reserved()
+        graphs.clear()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for k in graphs.BUILDS:
+            graphs.BUILDS[k] = 0
+        runs = [run(call) for _ in range(4)]
+        builds = dict(graphs.BUILDS)
+        graph_mem = torch.cuda.max_memory_reserved()
+        _, sites = _sync_sites(torch, lambda: run(call))
+        round_reads = _round_read_sites(sites)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            wall_prof = time.perf_counter() - t0
+        busy = sum(e.duration_ns() for e in device_operations(
+            prof.profiler.kineto_results.events())) / 1e9
+        row = {"path": label, "eager_s": eager_s, "cold_s": runs[0][0],
+               "warmup_s": builds["warmup_s"], "capture_s": builds["capture_s"],
+               "graphs": builds["graphs"],
+               "warm_s": statistics.median(r[0] for r in runs[1:]),
+               "round_passes": passes,
+               "host_reads_per_round": sum(round_reads.values()) / max(passes, 1),
+               "sync_sites": sites, "reserved_eager_bytes": eager_mem,
+               "reserved_graph_bytes": graph_mem, "busy_share_warm": busy / wall_prof,
+               "launches": want_l, "rows": want_r,
+               "bit_equal": [r[1] == want for r in runs],
+               "counts_equal": [r[2] == want_l and r[3] == want_r for r in runs]}
+        print("compiled fit", json.dumps(row), flush=True)
+        table.append(row)
+        for k in total:
+            total[k] += want_l[k]
+        if not all(row["bit_equal"]):
+            bad = sorted({f for r in runs for a, b in zip(r[1], want) for f in a
+                          if a[f] != b.get(f)})
+            failures.append(f"{label}: the graph fit differs from the eager fit in {bad}")
+        if not all(row["counts_equal"]):
+            failures.append(f"{label}: launches {[r[2] for r in runs]} rows "
+                            f"{[r[3] for r in runs]}, eager {want_l} {want_r}")
+        if row["host_reads_per_round"] > 2:
+            failures.append(f"{label}: {row['host_reads_per_round']} host reads a round")
+        own = {k: v for k, v in sites.items() if any(
+            m in k for m in ("core/pearl.py", "ops/labeling.py", "kernels/scoring.py"))}
+        if own:
+            failures.append(f"{label}: host reads from the captured code: {own}")
+    # cfg.unroll_rounds: one graph for the rounds and the tail
+    corrs = load_corr_scene("oldclassicswing")[0]
+    orig = engine.fit_rows
+
+    def unrolled(family, cfg, *a, **k):
+        return orig(family, dataclasses.replace(cfg, unroll_rounds=True), *a, **k)
+
+    per_round = run(lambda: _fit("H", corrs))
+    engine.fit_rows = unrolled
+    try:
+        unroll = [run(lambda: _fit("H", corrs)) for _ in range(2)]
+    finally:
+        engine.fit_rows = orig
+    row = {"path": "H oldclassicswing unroll_rounds", "per_round_s": per_round[0],
+           "unrolled_s": [u[0] for u in unroll],
+           "bit_equal": [u[1] == per_round[1] for u in unroll],
+           "launches_per_round_form": per_round[2],
+           "launches_unrolled": [u[2] for u in unroll]}
+    print("compiled fit", json.dumps(row), flush=True)
+    if not all(row["bit_equal"]):
+        failures.append("unroll_rounds: the one-graph fit differs from the per-round graphs")
+    res = {"paths": table, "unroll_rounds": row, "launches": total}
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return res
 
 
 FAILURES = []
@@ -2220,11 +2508,12 @@ def main():
     _timed("7 sync", phase_moves_sync, torch)
     mesh = _timed("8 mesh", phase_mesh, torch, batched)
     real = _timed("9 real images", phase_real_images, torch)
+    compiled = _timed("10 compiled fit", phase_compiled_fit, torch)
     print(f"total seconds {time.perf_counter() - t_start:.3f}", flush=True)
     if FAILURES:
         _fail("; ".join(FAILURES))
 
-    kernel_cases, row_cases, essential_cases, synth_cases, hyp_cases = kernel_phase
+    kernel_cases, row_cases, essential_cases, synth_cases, hyp_cases, captured = kernel_phase
     kernels = [
         _kernel_line("score_homography", *kernel_cases["score_homography"],
                      results["H"], [256, 2304],
@@ -2247,6 +2536,9 @@ def main():
         k["launches_dataset_pass"] = dataset_pass["launches"][k["name"]]
         k["launches_mesh"] = mesh["launches"][k["name"]]
     kernels[0]["launches_real_images"] = real["launches"]
+    for k in kernels:
+        k["captured_launch_bit_equal"] = all(captured[k["name"]]["bit_equal"])
+        k["launches_compiled_fit"] = compiled["launches"][k["name"]]
     print("bench", json.dumps(bench), flush=True)
     print("bench essential", json.dumps(bench_e), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

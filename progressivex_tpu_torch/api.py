@@ -15,8 +15,11 @@ so the card and the CPU fit the same samples; torch's numbers differ
 from jax.random's, so a seed does not reproduce the JAX package's run.
 `progress_callback` receives one dict per round and restart, as the JAX
 package's (core/engine.LIVE_CALLBACK); `with_statistics="phases"` runs the
-fit once more under torch.profiler and fills `Statistics.phase_times`
-(io/profiling.py).
+fit once more, eagerly, under torch.profiler and fills
+`Statistics.phase_times` (io/profiling.py). On the card a fit runs as
+CUDA graphs, captured at the first call of its family, configuration,
+pad level and restarts and replayed after (core/graphs.py), as the JAX
+package compiles one program per key.
 """
 
 from __future__ import annotations

@@ -2,11 +2,15 @@
 
 `EngineConfig` keeps the JAX package's fields and defaults, so that a
 configuration carries across unchanged (`convert.engine_config`); the
-rationale for each default is documented there. Fields that only shape
-the TPU program (`unroll_icm`, `unroll_pearl`, `unroll_rounds`) select
-between semantically identical loop forms and have no effect in an eager
-port. Options whose code paths belong to later slices are rejected by
-`core/engine.fit` when set away from their defaults.
+rationale for each default is documented there. The loop-form fields
+select between semantically identical forms, as in the JAX package.
+ICM and PEARL always run their predicated forms here, the JAX defaults
+`unroll_icm` and `unroll_pearl` (no value is read to the host inside
+them), so those two fields are not read. `unroll_rounds` runs all
+max_rounds rounds predicated, PEARL under its gate, with no read between
+them: on the card the rounds and the final moves are then one CUDA graph
+(core/graphs.py), the same bits as the per-round graphs; a live-progress
+fit runs round by round all the same (`core/engine.unrolled`).
 
 `RuntimeParams` holds the dynamic scalars as numpy float32/int32 values,
 as `make_params` in the JAX package does, so that the scalar arithmetic

@@ -14,8 +14,18 @@ decision (accepted, the slot written, PEARL or not, the sub-batch count,
 done) is a tensor of shape [R]; a row that is done is frozen the way the
 JAX round body freezes it (progressivex_tpu/core/engine.py:942-954), its
 round log included, so a row's result does not depend on the other rows.
-The Python loops read one boolean at a time: "are all rows done" once a
-round, and "does any row go on" in the sub-batch, LO, PEARL and ICM loops.
+
+The stages read nothing to the host, as the JAX package's device loops
+(`prepare`, `start`, the round's halves `round_propose` and
+`round_update`, `finish`): the sub-batch, LO, PEARL and ICM loops run
+their predicated steps, the round index is a device tensor and the log is
+written one-hot at it. The round loop reads at most two values a round:
+`any_pearl` between the halves (a round in which no row runs PEARL skips
+its work) and `all_done` at its end (the JAX while_loop's condition). On
+a CUDA device each stage is a CUDA graph, captured once per key and
+replayed (core/graphs.py, the counterpart of the JAX package's compiled
+fit); on the CPU, inside `graphs.eager()` and for replicas on other
+devices, the same stages run eagerly.
 `fit` is one scene: a call of `fit_rows` with its `n_restarts` restarts as
 rows, and `select_restart` picks the winner on the host, as the JAX
 package vmaps restarts.
@@ -51,11 +61,13 @@ Live progress (`cfg.live_progress`): after each pass of the round loop,
 `LIVE_CALLBACK` receives one dict a row, in row order, with the JAX
 package's keys (progressivex_tpu/core/engine.py:71-94): a row's "round" is
 its rounds run before the pass, frozen once the row is done, as the vmapped
-JAX loop emits it. Without it the loop reads nothing more to the host.
-Phases are tagged with `torch.profiler.record_function` under the JAX
-package's scope names (progx_graph, progx_sampling, progx_proposal,
-progx_pearl, and in core/pearl.py progx_labeling and progx_refit), which
-`io/profiling.measure_phase_times` reads; a tag costs no launch.
+JAX loop emits it, read at the round's end. Without it the loop reads
+nothing more to the host. Phases are tagged with
+`torch.profiler.record_function` under the JAX package's scope names
+(progx_graph, progx_sampling, progx_proposal, progx_pearl, and in
+core/pearl.py progx_labeling and progx_refit), which
+`io/profiling.measure_phase_times` reads from an eager fit; a tag costs
+no launch.
 """
 
 from __future__ import annotations
@@ -103,15 +115,17 @@ _F32 = np.float32
 LIVE_CALLBACK = None
 
 
-def _emit_progress(rounds, stats, labels):
-    """One event a row: rounds [R] before this pass, the round's
-    statistics ([R] each) and labels [R, N], read to the host at once."""
+def _emit_progress(*progress):
+    """One event a row from `round_update`'s progress: rounds [R] before
+    this pass, the round's statistics ([R] each) and labels [R, N], read
+    to the host at once, at the round's end (the labels copied: a graph
+    rewrites its buffers in the next round)."""
     cb = LIVE_CALLBACK
     if cb is None:
         return
-    rounds, accepted, inliers, tan, score, energy, n_active = (
-        t.cpu().numpy() for t in (rounds, *stats))
-    labels = labels.cpu().numpy()
+    rounds, accepted, inliers, tan, score, energy, n_active, labels = (
+        t.cpu().numpy() for t in progress)
+    labels = labels.copy()
     for r in range(rounds.shape[0]):
         cb({"round": int(rounds[r]), "accepted": bool(accepted[r]),
             "inliers": int(inliers[r]), "tanimoto": float(tan[r]),
@@ -205,7 +219,10 @@ def _search(family, cfg, params, data, pmask, pweights, idx, samp_ok,
 
     # Sub-batches until the sample count exceeds k* of the best hypothesis
     # (the batched form of GC-RANSAC's adaptive termination), per row: a
-    # row that has enough is held while the others draw on.
+    # row that has enough is held while the others draw on. All n_sub
+    # steps run, predicated on `want`, as the JAX package's while_loop
+    # runs them under its lane mask; LO's lo_steps steps likewise under
+    # `improving`. Nothing is read to the host.
     cand_descs = torch.zeros(rows, t, dim, dtype=data.dtype, device=data.device)
     cand_scores = torch.full((rows, t), _NEG, dtype=torch.float32, device=data.device)
     raw_desc = torch.zeros(rows, dim, dtype=data.dtype, device=data.device)
@@ -218,8 +235,6 @@ def _search(family, cfg, params, data, pmask, pweights, idx, samp_ok,
             want = want & (s * b_samples < _k_star(raw_inl, params.n_valid,
                                                    params.confidence,
                                                    family.sample_size))
-            if not bool(want.any()):
-                break
         idx_s, ok_s = (idx, samp_ok) if s == 0 else (idx_ext[:, s - 1], ok_ext[:, s - 1])
         samples = data[ar[:, None, None], idx_s]  # [R, B, m, d]
         descs_h, valid_h = family.minimal_solver_batched(
@@ -279,8 +294,6 @@ def _search(family, cfg, params, data, pmask, pweights, idx, samp_ok,
         d = torch.where(better[..., None], nd, d)
         sc = torch.where(better, s_new, sc)
         improving = better
-        if not bool(improving.any()):
-            break
     scores_lo = torch.where(cand_valid, sc, _NEG)
     best_t = scores_lo.argmax(-1)
     return d[ar, best_t], scores_lo[ar, best_t], samples_drawn
@@ -353,8 +366,9 @@ class _Replicas:
         def group_search(g):
             k = len(g["replicas"])
             idx_all, ok_all, idx_ext, ok_ext = g["samples"]
-            return _search(family, cfg, g["params"], *g["inputs"], idx_all[:, rnd],
-                           ok_all[:, rnd], idx_ext, ok_ext, g["adj"],
+            r = _to(rnd, g["device"])
+            return _search(family, cfg, g["params"], *g["inputs"], _at_round(idx_all, r),
+                           _at_round(ok_all, r), idx_ext, ok_ext, g["adj"],
                            _repeat_rows(compound_pref.to(g["device"]), k),
                            _repeat_rows(has_compound.to(g["device"]), k))
 
@@ -374,21 +388,31 @@ class _Replicas:
         return desc[ar, best], score[ar, best], drawn.sum(1)
 
 
+def _at_round(t, rnd):
+    """t [R, rounds, ...] at round rnd: an int, or a [1] int64 tensor on
+    the device of t (the round loop's counter, which a CUDA graph reads
+    on the device)."""
+    if isinstance(rnd, int):
+        return t[:, rnd]
+    return t.index_select(1, rnd)[:, 0]
+
+
 def _make_propose(family, cfg, params, data, pmask, pweights, adj, samples,
                   hyp_devices=None):
     """The proposal of a fit's rounds, `propose(rnd, compound_pref,
     has_compound)` -> (desc [R, D], score [R], samples_drawn [R]) of round
-    rnd on every row: `_search` on the round's samples, or with
-    `cfg.hyp_axis` set the H replicas of `_Replicas` reduced to one winner
-    a row. `samples` is `fit_rows`' `presampled` on the device of `data`
-    (with its replica axis under cfg.hyp_axis), `hyp_devices` the device
-    of each replica (the device of `data` for all if None)."""
+    rnd (an int or a [1] tensor, see `_at_round`) on every row: `_search`
+    on the round's samples, or with `cfg.hyp_axis` set the H replicas of
+    `_Replicas` reduced to one winner a row. `samples` is `fit_rows`'
+    `presampled` on the device of `data` (with its replica axis under
+    cfg.hyp_axis), `hyp_devices` the device of each replica (the device of
+    `data` for all if None)."""
     idx_all, ok_all, idx_ext, ok_ext = samples
     if cfg.hyp_axis is None:
         def propose(rnd, compound_pref, has_compound):
-            return _search(family, cfg, params, data, pmask, pweights, idx_all[:, rnd],
-                           ok_all[:, rnd], idx_ext, ok_ext, adj, compound_pref,
-                           has_compound)
+            return _search(family, cfg, params, data, pmask, pweights,
+                           _at_round(idx_all, rnd), _at_round(ok_all, rnd), idx_ext,
+                           ok_ext, adj, compound_pref, has_compound)
         return propose
     replicas = _Replicas([data.device] * idx_all.shape[1] if hyp_devices is None
                          else hyp_devices, params, data, pmask, pweights, adj, idx_all,
@@ -399,18 +423,52 @@ def _make_propose(family, cfg, params, data, pmask, pweights, adj, samples,
     return propose
 
 
-def _round(family, cfg, params, data, pmask, pweights, adj, propose, state: FitState):
-    """One propose -> validate -> optimize -> update -> terminate round on
-    every row; `propose(compound_pref, has_compound)` is the round's
-    proposal, (desc [R, D], score [R], samples_drawn [R]). Returns (new
-    state, per-row statistics, samples drawn [R]); the caller keeps the
-    old state of rows that were done."""
+class Carry(NamedTuple):
+    """The round loop's carry: the fit state, the round log [R,
+    max_rounds] (written one-hot at the round index, as the JAX loop
+    writes it), the rounds each row ran and the samples its proposals
+    drew ([R] each), and the round index `rnd`, a [1] int64 tensor on the
+    fit's device (the JAX while_loop's counter)."""
+
+    state: FitState
+    log: RoundLog
+    rounds_run: torch.Tensor
+    samples_drawn: torch.Tensor
+    rnd: torch.Tensor
+
+
+class Proposal(NamedTuple):
+    """The first half of a round (`round_propose`), [R] a field unless
+    noted: the state after the slot write, the PEARL gate `run_pearl` and
+    `any_pearl` (a 0-d bool, the one value the loop reads between the
+    halves), and the round's statistics."""
+
+    descs: torch.Tensor  # [R, K, D]
+    active: torch.Tensor  # [R, K]
+    labels: torch.Tensor  # [R, N]
+    run_pearl: torch.Tensor
+    any_pearl: torch.Tensor
+    accepted: torch.Tensor
+    inliers: torch.Tensor
+    tanimoto: torch.Tensor
+    score: torch.Tensor
+    total_iters: torch.Tensor
+    rejections: torch.Tensor
+    drawn: torch.Tensor
+
+
+def round_propose(family, cfg, params, data, pmask, pweights, adj, propose,
+                  carry: Carry) -> Proposal:
+    """The first half of a round on every row: propose -> validate ->
+    slot write, up to the PEARL gate. `propose(rnd, compound_pref,
+    has_compound)` is `_make_propose`'s. Reads nothing to the host."""
+    state = carry.state
     k_slots = cfg.max_models
     trunc_sq = truncated_sq_threshold(params.threshold)  # [R]
     has_compound = state.active.any(-1)
 
     with record_function("progx_proposal"):
-        desc, score, samples_drawn = propose(state.compound_pref, has_compound)
+        desc, score, samples_drawn = propose(carry.rnd, state.compound_pref, has_compound)
         prop_valid = score > _NEG / 2
         r2_best = family.squared_residual(data, desc)
 
@@ -440,15 +498,35 @@ def _round(family, cfg, params, data, pmask, pweights, adj, propose, state: FitS
     first = accepted & ~run_pearl
     first_labels = torch.where((r2_best < trunc_sq[:, None]) & pmask, slot[:, None], k_slots)
     labels = torch.where(first[:, None], first_labels, state.labels)
-    energy = state.energy
-    if bool(run_pearl.any()):
+    return Proposal(descs, active, labels, run_pearl, run_pearl.any(), accepted,
+                    inlier_cnt, tan, score, total_iters, rejections, samples_drawn)
+
+
+def round_update(family, cfg, params, data, pmask, pweights, adj, carry: Carry,
+                 prop: Proposal, pearl: bool):
+    """The second half of a round on every row: PEARL where `run_pearl`
+    (with `pearl` false no row runs it: the loop reads `any_pearl` first,
+    which keeps rejected rounds free of PEARL's work; with `pearl` true
+    rows without `run_pearl` pass it unchanged, the vmapped lax.cond's
+    semantics), the compound preference, termination, the log, and the
+    hold of rows that were done (progressivex_tpu/core/engine.py:942-954).
+    Returns (carry, progress, all_done): progress is (rounds run before
+    the round, accepted, inliers, tanimoto, score, energy, n_active [R]
+    each, the round's labels [R, N]) for `LIVE_CALLBACK`, all_done a 0-d
+    bool. Reads nothing to the host."""
+    state = carry.state
+    k_slots = cfg.max_models
+    trunc_sq = truncated_sq_threshold(params.threshold)  # [R]
+    descs, active, labels, energy = prop.descs, prop.active, prop.labels, state.energy
+    if pearl:
+        run = prop.run_pearl
         with record_function("progx_pearl"):
             pres = pearl_run(family, cfg, params, data, pmask, pweights, descs,
                              active, state.labels, adj)
-        descs = torch.where(run_pearl[:, None, None], pres.descs, descs)
-        active = torch.where(run_pearl[:, None], pres.active, active)
-        labels = torch.where(run_pearl[:, None], pres.labels, labels)
-        energy = torch.where(run_pearl, pres.energy, energy)
+        descs = torch.where(run[:, None, None], pres.descs, descs)
+        active = torch.where(run[:, None], pres.active, active)
+        labels = torch.where(run[:, None], pres.labels, labels)
+        energy = torch.where(run, pres.energy, energy)
 
     # compound preference, recomputed from the current descriptors
     pref_all = (truncated_preference(family.squared_residual(data, descs), trunc_sq)
@@ -459,19 +537,30 @@ def _round(family, cfg, params, data, pmask, pweights, adj, propose, state: FitS
     covered = ((labels != k_slots) & pmask).sum(-1)
     unseen_pts = torch.clamp(params.n_valid - covered, min=0).to(torch.float32)
     one_minus_conf = np.clip(_F32(1.0) - params.confidence, _F32(1e-9), _F32(1.0 - 1e-9))
-    iters_f = torch.clamp(total_iters.to(torch.float32), min=1.0)
+    iters_f = torch.clamp(prop.total_iters.to(torch.float32), min=1.0)
     inlier_ratio = (1.0 - float(one_minus_conf) ** (1.0 / iters_f)) ** float(
         _F32(1.0) / _F32(family.sample_size))
     unseen = torch.round(unseen_pts * inlier_ratio)
     n_active_now = active.sum(-1)
-    done = (state.done | (rejections >= int(params.max_rejections))
+    accepted = prop.accepted
+    done = (state.done | (prop.rejections >= int(params.max_rejections))
             | (accepted & (unseen < float(params.min_inliers)))
             | (accepted & (n_active_now >= int(params.max_models))))
 
-    new_state = FitState(descs, active, labels, compound_pref, slot + accepted,
-                         total_iters, rejections, energy, done)
-    return (new_state, (accepted, inlier_cnt, tan, score, energy, n_active_now),
-            samples_drawn)
+    new_state = FitState(descs, active, labels, compound_pref,
+                         state.n_slots_used + accepted, prop.total_iters,
+                         prop.rejections, energy, done)
+    stats = (accepted, prop.inliers, prop.tanimoto, prop.score, energy, n_active_now)
+    live = ~state.done  # rows that were done keep their state and log
+    at = ((torch.arange(cfg.max_rounds, device=data.device) == carry.rnd)[None, :]
+          & live[:, None])
+    log = RoundLog(*(torch.where(at, v.to(col.dtype)[:, None], col)
+                     for col, v in zip(carry.log, stats)))
+    held = FitState(*(torch.where(per_row(live, new.ndim), new, old)
+                      for new, old in zip(new_state, state)))
+    out = Carry(held, log, carry.rounds_run + live,
+                carry.samples_drawn + torch.where(live, prop.drawn, 0), carry.rnd + 1)
+    return out, (carry.rounds_run, *stats, new_state.labels), held.done.all()
 
 
 def _check_slice(cfg: EngineConfig):
@@ -501,38 +590,27 @@ def spatial_order(data, point_mask):
     return perm, torch.argsort(perm, dim=-1, stable=True)
 
 
-def fit_rows(family: ModelFamily, cfg: EngineConfig, params: RuntimeParams, data,
-             point_mask, point_weights, generators=None, presampled=None,
-             graph_data=None, hyp_devices=None) -> FitResult:
-    """R independent fits on the device of `data`: data [R, N, d], point
-    mask and weights [R, N], `params.threshold` and `params.n_valid`
-    shared or one a row ([R]). `graph_data` [R, N, d'], if given, are the
-    coordinates of the principal-axis sort and the kNN graph in place of
-    `data` (the 6D-pose front ends build the graph on pixels and world
-    points, progressivex_tpu/core/engine.py:516-551). `cfg.n_restarts` is
-    not read: restarts are rows. Samples come from `generators`, R CPU torch.Generators (one
-    object may serve several rows: each row draws all of its rounds, then
-    its extension sub-batches, in row order), or from `presampled =
-    (idx_all [R, rounds, B, m], ok_all [R, rounds, B], idx_ext
-    [R, S-1, B, m], ok_ext [R, S-1, B])` as the sampler returns them:
-    PROSAC's in the caller's point order, every other sampler's in the
-    sorted order of the fit. Returns a FitResult with a leading row axis,
-    labels in the caller's point order.
+class Prepared(NamedTuple):
+    """The pre-round part of a fit (`prepare`): the inputs in the sorted
+    point order of a banded fit (as given otherwise), `rank` (caller's
+    point -> sorted position, None unless banded), the sampler's
+    neighborhoods `samp_idx`/`samp_mask` [R, N, k] and the Potts
+    adjacency."""
 
-    With `cfg.hyp_axis` set, each row runs H replicas of its proposal:
-    `generators` holds H generators a row (replica h draws its rounds,
-    then its extension sub-batches, from the h-th, replica after replica),
-    `presampled` a replica axis after the row axis (idx_all [R, H, rounds,
-    B, m], ok_all [R, H, rounds, B], idx_ext [R, H, S-1, B, m], ok_ext
-    [R, H, S-1, B]), and `hyp_devices` the device of each replica (the
-    device of `data` for all if None)."""
-    _check_slice(cfg)
-    n_rows, n = data.shape[:2]
-    dev = data.device
-    n_valid_host = np.broadcast_to(np.asarray(
-        params.n_valid.cpu() if isinstance(params.n_valid, torch.Tensor)
-        else params.n_valid), (n_rows,))
-    params = rows_params(params, n_rows, dev)
+    data: torch.Tensor
+    point_mask: torch.Tensor
+    point_weights: torch.Tensor
+    rank: torch.Tensor | None
+    samp_idx: torch.Tensor
+    samp_mask: torch.Tensor
+    adj: object  # dense [R, N, N] or BandedAdj
+
+
+def prepare(cfg, params, data, point_mask, point_weights, graph_data=None) -> Prepared:
+    """The principal-axis sort of a banded fit, the kNN or grid graph and
+    the adjacency, on every row (`params` with per-row tensors,
+    `rows_params`). Reads nothing to the host."""
+    n = data.shape[1]
     use_band = cfg.potts_band > 0 and n > 128 + 2 * cfg.potts_band
     gd = data if graph_data is None else graph_data
     rank = None
@@ -557,47 +635,45 @@ def fit_rows(family: ModelFamily, cfg: EngineConfig, params: RuntimeParams, data
             adj = adjacency_banded(knn_idx, knn_mask, cfg.potts_band)
         else:
             adj = adjacency_from_knn(knn_idx, knn_mask)
+    return Prepared(data, point_mask, point_weights, rank, samp_idx, samp_mask, adj)
 
-    n_sub = max(int(cfg.n_subbatches), 1)
-    if presampled is None:
-        if generators is None:
-            raise ValueError("fit needs a torch.Generator or presampled samples")
-        if len(generators) != n_rows:
-            raise ValueError(f"{len(generators)} generators for {n_rows} rows")
-        if cfg.hyp_axis is not None:
-            n_hyp = {len(g) for g in generators}
-            if len(n_hyp) != 1:
-                raise ValueError(f"hyp_axis needs the same number of generators a "
-                                 f"row, have {sorted(n_hyp)}")
-        with record_function("progx_sampling"):
-            presampled = _draw(generators, cfg, family, n_valid_host, samp_idx,
-                               samp_mask, n_sub)
-    idx_all, ok_all, idx_ext, ok_ext = (t.to(dev) for t in presampled)
+
+def draw_samples(family, cfg, generators, presampled, n_valid_host, prep: Prepared):
+    """The samples of a fit, as `fit_rows` documents them: `presampled`
+    as given, or drawn on the host from `generators` over the prepared
+    neighborhoods (read to the host once)."""
+    if presampled is not None:
+        return presampled
+    n_rows = prep.data.shape[0]
+    if generators is None:
+        raise ValueError("fit needs a torch.Generator or presampled samples")
+    if len(generators) != n_rows:
+        raise ValueError(f"{len(generators)} generators for {n_rows} rows")
+    if cfg.hyp_axis is not None:
+        n_hyp = {len(g) for g in generators}
+        if len(n_hyp) != 1:
+            raise ValueError(f"hyp_axis needs the same number of generators a "
+                             f"row, have {sorted(n_hyp)}")
+    with record_function("progx_sampling"):
+        return _draw(generators, cfg, family, n_valid_host, prep.samp_idx,
+                     prep.samp_mask, max(int(cfg.n_subbatches), 1))
+
+
+def start(family, cfg, data, rank, samples):
+    """The samples on the fit's device as the rounds read them (int64
+    indices; PROSAC's mapped through the spatial sort) and the first
+    carry. Reads nothing to the host."""
+    dev = data.device
+    n_rows, n = data.shape[:2]
+    k_slots = cfg.max_models
+    idx_all, ok_all, idx_ext, ok_ext = (t.to(dev) for t in samples)
     idx_all, idx_ext = idx_all.long(), idx_ext.long()
-    if idx_all.ndim != (5 if cfg.hyp_axis is not None else 4):
-        raise ValueError(f"samples of shape {tuple(idx_all.shape)} for hyp_axis "
-                         f"{cfg.hyp_axis!r}")
     if cfg.sampler_id == 1 and rank is not None:
         # PROSAC draws in quality order, the caller's row order: map its
         # indices through the spatial sort (every other sampler draws in
         # sorted order already).
         idx_all, idx_ext = (rank.gather(1, i.reshape(n_rows, -1)).reshape(i.shape)
                             for i in (idx_all, idx_ext))
-    propose = _make_propose(family, cfg, params, data, point_mask, point_weights, adj,
-                            (idx_all, ok_all, idx_ext, ok_ext), hyp_devices)
-    return _fit_prepared(family, cfg, params, data, point_mask, point_weights,
-                         adj, propose, rank)
-
-
-def _fit_prepared(family, cfg, params, data, point_mask, point_weights, adj,
-                  propose, rank):
-    """The round loop and the final moves of `fit_rows`, with the
-    neighborhood tensors built and the samples drawn: `propose(rnd,
-    compound_pref, has_compound)` is round rnd's proposal. `rank` maps the
-    caller's point order to the sorted order of a banded fit."""
-    dev = data.device
-    n_rows, n = data.shape[:2]
-    k_slots = cfg.max_models
 
     def zeros(dtype):
         return torch.zeros(n_rows, dtype=dtype, device=dev)
@@ -614,24 +690,92 @@ def _fit_prepared(family, cfg, params, data, point_mask, point_weights, adj,
     log = RoundLog(*(torch.zeros(n_rows, cfg.max_rounds, dtype=dt, device=dev)
                      for dt in (torch.bool, torch.int64, torch.float32,
                                 torch.float32, torch.float32, torch.int64)))
-    rounds_run = zeros(torch.int64)
-    samples_drawn = zeros(torch.int64)
-    for rnd in range(cfg.max_rounds):
-        if rnd > 0 and bool(state.done.all()):
-            break
-        new_state, stats, drawn = _round(
-            family, cfg, params, data, point_mask, point_weights, adj,
-            lambda *a, rnd=rnd: propose(rnd, *a), state)
-        if cfg.live_progress:
-            _emit_progress(rounds_run, stats, new_state.labels)
-        live = ~state.done  # rows that were done keep their state and log
-        for col, v in zip(log, stats):
-            col[:, rnd] = torch.where(live, v.to(col.dtype), col[:, rnd])
-        state = FitState(*(torch.where(per_row(live, new.ndim), new, old)
-                           for new, old in zip(new_state, state)))
-        rounds_run = rounds_run + live
-        samples_drawn = samples_drawn + torch.where(live, drawn, 0)
+    carry = Carry(state, log, zeros(torch.int64), zeros(torch.int64),
+                  torch.zeros(1, dtype=torch.int64, device=dev))
+    return (idx_all, ok_all, idx_ext, ok_ext), carry
 
+
+def unrolled(cfg: EngineConfig) -> bool:
+    """Whether the rounds run as the JAX package's `unroll_rounds` form:
+    all max_rounds rounds predicated, PEARL on every row under its gate,
+    with no value read to the host between them. A live-progress fit
+    reads its statistics at every round's end and so runs round by
+    round."""
+    return cfg.unroll_rounds and not cfg.live_progress
+
+
+def fit_rows(family: ModelFamily, cfg: EngineConfig, params: RuntimeParams, data,
+             point_mask, point_weights, generators=None, presampled=None,
+             graph_data=None, hyp_devices=None, cache="rows") -> FitResult:
+    """R independent fits on the device of `data`: data [R, N, d], point
+    mask and weights [R, N], `params.threshold` and `params.n_valid`
+    shared or one a row ([R]). `graph_data` [R, N, d'], if given, are the
+    coordinates of the principal-axis sort and the kNN graph in place of
+    `data` (the 6D-pose front ends build the graph on pixels and world
+    points, progressivex_tpu/core/engine.py:516-551). `cfg.n_restarts` is
+    not read: restarts are rows. Samples come from `generators`, R CPU torch.Generators (one
+    object may serve several rows: each row draws all of its rounds, then
+    its extension sub-batches, in row order), or from `presampled =
+    (idx_all [R, rounds, B, m], ok_all [R, rounds, B], idx_ext
+    [R, S-1, B, m], ok_ext [R, S-1, B])` as the sampler returns them:
+    PROSAC's in the caller's point order, every other sampler's in the
+    sorted order of the fit. Returns a FitResult with a leading row axis,
+    labels in the caller's point order.
+
+    With `cfg.hyp_axis` set, each row runs H replicas of its proposal:
+    `generators` holds H generators a row (replica h draws its rounds,
+    then its extension sub-batches, from the h-th, replica after replica),
+    `presampled` a replica axis after the row axis (idx_all [R, H, rounds,
+    B, m], ok_all [R, H, rounds, B], idx_ext [R, H, S-1, B, m], ok_ext
+    [R, H, S-1, B]), and `hyp_devices` the device of each replica (the
+    device of `data` for all if None).
+
+    On a CUDA device the fit runs as CUDA graphs (core/graphs.py, the
+    counterpart of the JAX package's compiled fit), cached by `cache`
+    ("rows", or "fit" for `fit`'s calls) under the fit's key; a fit whose
+    replicas sit on other devices, a fit inside `graphs.eager()` and a
+    fit on the CPU run the same stages eagerly."""
+    from progressivex_tpu_torch.core import graphs
+
+    _check_slice(cfg)
+    n_rows = data.shape[0]
+    dev = data.device
+    n_valid_host = np.broadcast_to(np.asarray(
+        params.n_valid.cpu() if isinstance(params.n_valid, torch.Tensor)
+        else params.n_valid), (n_rows,))
+    params = rows_params(params, n_rows, dev)
+    if presampled is not None and presampled[0].ndim != (4 if cfg.hyp_axis is None else 5):
+        raise ValueError(f"samples of shape {tuple(presampled[0].shape)} for hyp_axis "
+                         f"{cfg.hyp_axis!r}")
+    if graphs.applies(dev, hyp_devices):
+        return graphs.fit_rows(family, cfg, params, data, point_mask, point_weights,
+                               generators, presampled, graph_data, n_valid_host, cache)
+    prep = prepare(cfg, params, data, point_mask, point_weights, graph_data)
+    samples = draw_samples(family, cfg, generators, presampled, n_valid_host, prep)
+    samples, carry = start(family, cfg, prep.data, prep.rank, samples)
+    moves = (family, cfg, params, prep.data, prep.point_mask, prep.point_weights,
+             prep.adj)
+    propose = _make_propose(*moves, samples, hyp_devices)
+    pearl_always = unrolled(cfg)
+    for _ in range(cfg.max_rounds):
+        prop = round_propose(*moves, propose, carry)
+        carry, progress, all_done = round_update(
+            *moves, carry, prop, pearl_always or bool(prop.any_pearl))
+        if cfg.live_progress:
+            _emit_progress(*progress)
+        if not pearl_always and bool(all_done):
+            break
+    return finish(*moves, prep.rank, carry)
+
+
+def finish(family, cfg, params, data, point_mask, point_weights, adj, rank,
+           carry: Carry) -> FitResult:
+    """The final moves after the rounds, in the JAX package's order
+    (split, merge, `_final_polish`, `_polish_research`, the final
+    relabel), the final energy, and the labels back in the caller's point
+    order (`rank` maps it to the sorted order of a banded fit). Reads
+    nothing to the host."""
+    state = carry.state
     descs, active, labels = state.descs, state.active, state.labels
     moves = (family, cfg, params, data, point_mask, point_weights)
     if cfg.split_pass:
@@ -663,11 +807,11 @@ def _fit_prepared(family, cfg, params, data, point_mask, point_weights, adj,
         labels=labels,
         n_models=active.sum(-1),
         total_iters=state.total_iters,
-        rounds_run=rounds_run,
+        rounds_run=carry.rounds_run,
         energy=energy,
-        round_log=log,
+        round_log=carry.log,
         compound_pref=torch.clamp(pref_f.amax(-2), min=0.0),
-        samples_drawn=samples_drawn,
+        samples_drawn=carry.samples_drawn,
     )
 
 
@@ -715,7 +859,8 @@ def fit(family: ModelFamily, cfg: EngineConfig, params: RuntimeParams, data,
     res = fit_rows(family, dataclasses.replace(cfg, n_restarts=1), params,
                    rows(data), rows(point_mask), rows(point_weights),
                    generators=[generator] * n_restarts, presampled=presampled,
-                   graph_data=None if graph_data is None else rows(graph_data))
+                   graph_data=None if graph_data is None else rows(graph_data),
+                   cache="fit")
     energies = res.energy.tolist()  # one read for every restart
     best = select_restart(energies, cfg.restart_rule, res.n_models.tolist())
     return row_result(res, best)._replace(restart=best,

@@ -1,9 +1,11 @@
 """PEARL: labeling / per-instance refit / weak-instance rejection, plus the
 final merge and split moves — counterpart of progressivex_tpu/core/pearl.py.
 
-The JAX package runs each of these loops as predicated unrolled steps that
-leave a converged carry unchanged; here a Python loop breaks at the same
-point. All slots refit at once through the family's batched solvers.
+Each loop runs as the JAX package's predicated unrolled steps
+(`unroll_pearl`, `unroll_icm`): every step runs, and a converged carry
+passes through it unchanged, so that nothing is read to the host and a
+CUDA graph can hold the loop (core/graphs.py). All slots refit at once
+through the family's batched solvers.
 
 `pearl_run` runs on the engine's row axis (one scene or restart a row),
 holding each converged row. `merge_instances` and `split_instances` run
@@ -69,9 +71,11 @@ def pearl_run(
     adj,  # dense [(R,) N, N] or BandedAdj
 ) -> PearlResult:
     """PEARL over the rows at once; params.threshold is shared or [R].
-    The loop runs while any row has not converged, and a row that has
-    converged (PEARL.h:463-467) is held from then on, so that its result
-    does not depend on the other rows."""
+    All cfg.pearl_iters iterations run, predicated as the JAX package's
+    `unroll_pearl` form (progressivex_tpu/core/pearl.py:285-301): a row
+    that has converged (PEARL.h:463-467) is held from then on, so that its
+    result does not depend on the other rows, and nothing is read to the
+    host."""
     if data.ndim == 2:  # one scene: a single row
         res = pearl_run(family, cfg, rows_params(params, 1, data.device),
                         data[None], point_mask[None],
@@ -167,8 +171,6 @@ def pearl_run(
             for new, prev in zip((descs, active, labels, energy, r2), old))
         e_prev = torch.where(running, energy, e_prev)
         running = running & changed
-        if not bool(running.any()):
-            break
     return PearlResult(descs, active, labels, energy)
 
 
@@ -283,8 +285,7 @@ def merge_instances(family, cfg: EngineConfig, params: RuntimeParams, data,
                                           w, trunc_sq)
         m_labels = torch.where(labels[:, None, :] == pj[..., None], pi[..., None],
                                labels[:, None, :])
-        m_labels, _ = labeling_ops.icm_sweeps(dcost_m, m_labels, adj, w, 2,
-                                              early_exit=False)
+        m_labels, _ = labeling_ops.icm_sweeps(dcost_m, m_labels, adj, w, 2)
         e_all = torch.where(feasible, total_energy(dcost_m, m_labels, m_active),
                             float("inf"))
         best = e_all.argmin(-1)  # [R]
@@ -410,8 +411,7 @@ def split_instances(family, cfg: EngineConfig, params: RuntimeParams, data,
         dcost_m = labeling_ops.data_costs(r2_m, m_active, point_mask[:, None],
                                           w, trunc_sq)
         m_labels = torch.where(part2, free[:, None, None], labels[:, None, :])
-        m_labels, _ = labeling_ops.icm_sweeps(dcost_m, m_labels, adj, w, 4,
-                                              early_exit=False)
+        m_labels, _ = labeling_ops.icm_sweeps(dcost_m, m_labels, adj, w, 4)
         e = _total_energy(dcost_m, m_labels, m_active, adj, w, label_cost)
         feasible = (active & has_free[:, None] & ok_h[:, :k_slots] & ok_h[:, k_slots:]
                     & (part1.sum(-1) >= min_half) & (part2.sum(-1) >= min_half))

@@ -10,7 +10,9 @@ self CPU time of each `aten::` operation. Time outside every scope of
 `scopes` (progx_pearl's own operations among them, as in the JAX package,
 whose rollup reads the same five scopes) is `other_ms`. It reads the raw
 profiler events by time and correlation, not the profiler's event tree,
-which takes minutes to build for the 10^5 operations of one fit.
+which takes minutes to build for the 10^5 operations of one fit. The fit
+runs eagerly on the card (core/graphs.eager): a replayed CUDA graph
+launches its operations with no host operation or scope around each.
 
 `op_self_times` is the counterpart of the JAX package's function of that
 name for a trace that `torch.profiler` wrote: (match text, self time)
@@ -92,7 +94,9 @@ def op_self_times(trace_dir: str):
     is the event's name, then the names of the annotations
     (`record_function` ranges) around it on the host, outermost first: for
     a device operation, those around the call that launched it. [] when
-    there is no trace."""
+    there is no trace. The annotations are there for a fit that ran
+    eagerly: profile it inside core/graphs.eager(), since a replayed CUDA
+    graph's operations have no host call around them."""
     traces = [p for pat in ("*.pt.trace.json", "*.pt.trace.json.gz")
               for p in glob.glob(os.path.join(trace_dir, "**", pat), recursive=True)]
     if not traces:
@@ -181,13 +185,17 @@ def measure_phase_times(run_once, device, scopes=DEFAULT_SCOPES):
     """Profile one call of `run_once` on `device` and attribute its device
     time. Returns {"<scope>_ms": float, ..., "other_ms": float,
     "total_device_ms": float}, rounded to the microsecond as the JAX
-    package rounds them."""
+    package rounds them. The call runs eagerly (core/graphs.eager), on
+    the card too: the scopes are host annotations, which a CUDA graph's
+    replay does not make."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from progressivex_tpu_torch.core import graphs
+
     cuda = torch.device(device).type == "cuda"
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
-    with profile(activities=activities) as prof:
+    with profile(activities=activities) as prof, graphs.eager():
         run_once()
         if cuda:
             torch.cuda.synchronize(device)

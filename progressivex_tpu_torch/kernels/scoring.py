@@ -23,14 +23,22 @@ scalars), they return [B] outputs, as one row.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises. A launch goes to the device of its tensors, whatever
-the calling thread's current device. `LAUNCHES` counts kernel launches and
-`ROWS` the rows they scored, both incremented under a lock at the one
-place a launch happens, so that the counts are exact when several host
-threads launch (a device mesh, parallel/sharding).
+the calling thread's current device, on that device's current stream,
+which may be capturing a CUDA graph (core/graphs.py): the launch then
+becomes a node of the graph. `LAUNCHES` counts kernel launches and `ROWS`
+the rows they scored, both incremented under a lock at the one place a
+launch happens, so that the counts are exact when several host threads
+launch (a device mesh, parallel/sharding). Inside `recording()` a launch
+is tallied for the calling thread instead: a graph's capture records its
+launches so, and each replay adds them (`add_counts`), which keeps the
+counts of a graph fit equal to those of the same fit run eagerly; the
+launches of a graph's warm-up, made only to build it, are recorded and
+dropped.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import threading
@@ -44,11 +52,37 @@ ROWS = {"score_homography": 0, "score_fundamental": 0}
 _COUNT_LOCK = threading.Lock()
 
 
+_RECORDING = threading.local()
+
+
 def _count(name: str, rows: int):
-    """One launch of `name` over `rows` rows, counted."""
+    """One launch of `name` over `rows` rows, counted, or tallied where
+    the calling thread is inside `recording()`."""
+    tally = getattr(_RECORDING, "tally", None)
+    if tally is not None:
+        tally.append((name, rows))
+        return
+    add_counts([(name, rows)])
+
+
+def add_counts(tally):
+    """Count the launches of `tally`, [(name, rows), ...]."""
     with _COUNT_LOCK:
-        LAUNCHES[name] += 1
-        ROWS[name] += rows
+        for name, rows in tally:
+            LAUNCHES[name] += 1
+            ROWS[name] += rows
+
+
+@contextlib.contextmanager
+def recording():
+    """Inside, the calling thread's launches are appended to the yielded
+    list as (name, rows) instead of counted."""
+    outer = getattr(_RECORDING, "tally", None)
+    _RECORDING.tally = tally = []
+    try:
+        yield tally
+    finally:
+        _RECORDING.tally = outer
 
 
 def score_homography_plain(data, descs, compound_pref, point_mask, trunc_sq,
@@ -116,7 +150,9 @@ def _sm_count(dev: torch.device) -> int:
 
 def _aligned(t):
     """t, or a copy of it that starts on a 16-byte boundary (the kernel's
-    bulk copies need one)."""
+    bulk copies need one). Under a graph's capture the copy is an
+    allocation of the graph's pool, at the same address in every replay,
+    as the inputs' own addresses are."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -179,13 +215,16 @@ def _rows_launch(name, data, descs, compound_pref, point_mask, trunc_sq,
     if data.ndim == 3:
         return _launch(name, data, descs, compound_pref, point_mask, trunc_sq,
                        exponent, has_compound, magsac_levels)
-    dev = data.device
+    def one_row(x, dtype):
+        # a tensor is reshaped on its device; a host scalar is written by
+        # a fill kernel, not copied from the host (a graph may capture it)
+        if isinstance(x, torch.Tensor):
+            return x.to(dtype).reshape(1)
+        return torch.full((1,), x, dtype=dtype, device=data.device)
+
     one = _launch(name, data[None], descs[None], compound_pref[None],
-                  point_mask[None],
-                  torch.as_tensor(trunc_sq, dtype=torch.float32, device=dev).reshape(1),
-                  exponent,
-                  torch.as_tensor(has_compound, dtype=torch.bool, device=dev).reshape(1),
-                  magsac_levels)
+                  point_mask[None], one_row(trunc_sq, torch.float32), exponent,
+                  one_row(has_compound, torch.bool), magsac_levels)
     return tuple(t[0] for t in one)
 
 

@@ -14,8 +14,9 @@ are in the JAX module and hold here unchanged. The JAX package reaches no
 kernel for this family; its proposal scorer is the plain
 `ops/scoring.residual_scorer` on the card and the CPU alike.
 
-The SVDs (Kabsch and the SO(3) projection) are `torch.linalg.svd` on a
-matrix made finite first; the 6x6 Gauss-Newton system is solved by LU with
+The SVDs (Kabsch and the SO(3) projection) are `ops/linalg.svd3` on a
+matrix made finite first (`torch.linalg.svd` on the CPU, a Jacobi SVD
+that reads nothing to the host on the card); the 6x6 Gauss-Newton system is solved by LU with
 partial pivoting (`torch.linalg.solve_ex`, as `jnp.linalg.solve`) without
 the error check that would read a flag back from the card.
 
@@ -32,7 +33,7 @@ from progressivex_tpu_torch.models.base import (ModelFamily, point_columns,
                                                 register_family, row_view)
 from progressivex_tpu_torch.ops.linalg import (det3, gram, kabsch, matmul_small,
                                                quartic_roots_real, row_sum,
-                                               smallest_eigvec_psd)
+                                               smallest_eigvec_psd, svd3)
 from progressivex_tpu_torch.ops.scoring import residual_scorer
 
 _EPS = 1e-12
@@ -133,7 +134,7 @@ def _nonminimal(data, weights):
     rot_ok = det3(Rp) > 0.0
     finite = torch.isfinite(Rp).all(-1).all(-1)
     eye = torch.eye(3, dtype=Rp.dtype, device=Rp.device)
-    U, S, Vh = torch.linalg.svd(torch.where(finite[..., None, None], Rp, eye))
+    U, S, Vh = svd3(torch.where(finite[..., None, None], Rp, eye))
     scale = torch.clamp(S.mean(-1), min=_EPS)
     sdet = torch.sign(det3(matmul_small(U, Vh)))
     one = torch.ones_like(sdet)

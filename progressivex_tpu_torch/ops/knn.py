@@ -52,9 +52,11 @@ def cell_ids(points, cell_size):
     taken in int64 (where torch sums int32, it promotes) and wrapped
     once at the end, which gives the same ids modulo 2^32."""
     cells = torch.floor(points / cell_size).to(torch.int32).to(torch.int64)
-    primes = torch.tensor(_CELL_PRIMES[:points.shape[-1]], dtype=torch.int64,
-                          device=points.device)
-    total = (cells * primes).sum(-1)
+    # The primes multiply as scalars (no host-to-device copy, which a CUDA
+    # graph could not hold); integer sums are exact in any order.
+    total = cells[..., 0] * _CELL_PRIMES[0]
+    for j in range(1, points.shape[-1]):
+        total = total + cells[..., j] * _CELL_PRIMES[j]
     return (((total + 2**31) % 2**32) - 2**31).to(torch.int32)
 
 

@@ -18,9 +18,10 @@ Rows: every function also takes a leading row axis (one graph and one
 labeling a row: dense adjacency [R, N, N], BandedAdj blocks
 [R, nb, 128, C] and degrees [R, N], costs [R, L, N], labels [R, N]), as the
 JAX functions under `jax.vmap`. All rows of a fit share N, and so whether
-the adjacency is banded. `icm_sweeps` stops when no row moved a point; a
-row that has converged is held, so its result does not depend on the
-others.
+the adjacency is banded. `icm_sweeps` runs its sweeps predicated, as the
+JAX package's `unroll_icm` form: a row whose sweep moved no point is held
+from then on, so its result does not depend on the others, and no value
+is read to the host.
 
 Candidates: labels (and costs) may carry more leading axes than the
 adjacency has rows, [(R,) C..., N]: candidate labelings of each row's
@@ -187,13 +188,12 @@ def _local_costs(dcost, labels, adj, deg, spatial_weight):
 
 
 def icm_sweeps(dcost, labels, adj, spatial_weight, n_sweeps: int,
-               early_exit: bool = True):
-    """Up to n_sweeps checkerboard ICM sweeps (even, then odd index
-    parity), stopping after the first sweep that moves no point (of any
-    row; a row whose sweep moved nothing is held from then on). Returns
-    (labels, energy). With `early_exit` false all n_sweeps run and no
-    value is read to the host; a row that stopped is held all the same,
-    so the result is the same."""
+               early_exit: bool = False):
+    """n_sweeps checkerboard ICM sweeps (even, then odd index parity),
+    predicated: a row whose sweep moved no point is held from then on.
+    Returns (labels, energy); nothing is read to the host. `early_exit`
+    stops the loop after the first sweep in which no row moved, which
+    reads a flag to the host once a sweep and gives the same result."""
     n = dcost.shape[-1]
     parity = (torch.arange(n, device=dcost.device) % 2).to(torch.bool)
     deg = _degrees_like(adj, labels)

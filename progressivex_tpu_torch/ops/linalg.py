@@ -312,22 +312,68 @@ def smallest_eigvec_psd(M, iters: int = 6):
     return v
 
 
+def svd3(M, sweeps: int = 6):
+    """(U, S, Vh) of M [..., 3, 3], singular values in descending order,
+    for the two uses that are invariant under a sign flip of a pair of
+    singular vectors (the rotations of `kabsch` and the SO(3) projection
+    of models/pnp.py). On the CPU, `torch.linalg.svd`. On the card, whose
+    SVD reads a convergence flag back to the host (no CUDA graph can hold
+    it), one-sided Jacobi on the columns in float64: `sweeps` cyclic
+    sweeps of the three column pairs, the singular values the column
+    norms; the third left vector is the cross product of the first two,
+    so that a rank-2 matrix (Kabsch on three points) still gives a proper
+    basis."""
+    if M.device.type == "cpu":
+        return torch.linalg.svd(M)
+    return svd3_jacobi(M, sweeps)
+
+
+def svd3_jacobi(M, sweeps: int = 6):
+    """`svd3`'s Jacobi SVD on any device (see there)."""
+    A = M.to(torch.float64)
+    cols = list(A.unbind(-1))
+    eye = torch.eye(3, dtype=torch.float64, device=M.device).expand_as(A)
+    vcols = list(eye.unbind(-1))
+    for _ in range(sweeps):
+        for p, q in ((0, 1), (0, 2), (1, 2)):
+            ap, aq = cols[p], cols[q]
+            alpha, beta, gamma = (ap * ap).sum(-1), (aq * aq).sum(-1), (ap * aq).sum(-1)
+            nz = gamma != 0.0
+            zeta = (beta - alpha) / torch.where(nz, 2.0 * gamma, 1.0)
+            t = torch.where(zeta >= 0.0, 1.0, -1.0) / (zeta.abs() + torch.sqrt(1.0 + zeta * zeta))
+            t = torch.where(nz, t, 0.0)[..., None]
+            c = 1.0 / torch.sqrt(1.0 + t * t)
+            sn = c * t
+            cols[p], cols[q] = c * ap - sn * aq, sn * ap + c * aq
+            vp, vq = vcols[p], vcols[q]
+            vcols[p], vcols[q] = c * vp - sn * vq, sn * vp + c * vq
+    A, V = torch.stack(cols, -1), torch.stack(vcols, -1)
+    S = torch.linalg.vector_norm(A, dim=-2)  # [..., 3]
+    order = torch.sort(S, dim=-1, descending=True, stable=True).indices
+    S = S.gather(-1, order)
+    A = A.gather(-1, order[..., None, :].expand_as(A))
+    V = V.gather(-1, order[..., None, :].expand_as(V))
+    u0, u1 = A[..., 0] / S[..., 0, None], A[..., 1] / S[..., 1, None]
+    U = torch.stack([u0, u1, torch.linalg.cross(u0, u1, dim=-1)], -1)
+    return U.to(M.dtype), S.to(M.dtype), V.transpose(-1, -2).to(M.dtype)
+
+
 def kabsch(src, dst, weights):
     """Weighted rigid alignment dst ~ R src + t for src, dst [..., N, 3]
     and weights [..., N]. Returns (R [..., 3, 3], t [..., 3], valid [...]).
 
     R = V diag(1, 1, sign det(V U^T)) U^T from the SVD U S V^T of the
-    weighted cross-covariance, which does not change when a pair of
-    singular vectors flips sign together. A cross-covariance that is not
-    finite (a degenerate sample) is replaced by the identity before the
-    SVD and marked invalid, since the SVD of the card raises on it."""
+    weighted cross-covariance (`svd3`), which does not change when a pair
+    of singular vectors flips sign together. A cross-covariance that is
+    not finite (a degenerate sample) is replaced by the identity before
+    the SVD and marked invalid."""
     wsum = torch.clamp(row_sum(weights), min=_EPS)[..., None]
     mu_s = row_sum(weights[..., :, None] * src, -2) / wsum
     mu_d = row_sum(weights[..., :, None] * dst, -2) / wsum
     H = gram(src - mu_s[..., None, :], dst - mu_d[..., None, :], weights)
     finite = torch.isfinite(H).all(-1).all(-1)
     eye = torch.eye(3, dtype=H.dtype, device=H.device)
-    U, _, Vh = torch.linalg.svd(torch.where(finite[..., None, None], H, eye))
+    U, _, Vh = svd3(torch.where(finite[..., None, None], H, eye))
     V, Ut = Vh.transpose(-1, -2), U.transpose(-1, -2)
     sgn = torch.sign(det3(matmul_small(V, Ut)))
     one = torch.ones_like(sgn)

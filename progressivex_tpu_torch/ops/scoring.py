@@ -75,8 +75,11 @@ def compound_penalized_scores(
         rank_pref = pref
     raw = total(rank_pref)
     shared = total(torch.minimum(pref, compound_pref[..., None, :]))
-    has = per_row(torch.as_tensor(has_compound, device=raw.device), raw.ndim)
-    scores = torch.where(has, raw - torch.clamp(shared, min=0.0) ** exponent, raw)
+    penalized = raw - torch.clamp(shared, min=0.0) ** exponent
+    if isinstance(has_compound, torch.Tensor):
+        scores = torch.where(per_row(has_compound, raw.ndim), penalized, raw)
+    else:  # a host bool picks on the host, with no copy to the device
+        scores = penalized if has_compound else raw
     inliers = ((sq_residuals < tau / 2.25) & pm).sum(-1)
     # An elementwise product and a sum, not a matrix-vector product: a row's
     # sum then does not depend on how many rows there are (torch's CPU

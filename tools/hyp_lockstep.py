@@ -254,13 +254,21 @@ class _Port:
         torch = self.torch
         cfg = dataclasses.replace(self.cfg, hyp_axis=None)
 
-        def propose(pref, has_c):
+        def propose(rnd, pref, has_c):
             return (self.t(desc)[None], self.t(score, torch.float32).reshape(1),
                     self.t(drawn, torch.long).reshape(1))
 
-        ns, stats, _ = self.engine._round(self.family, cfg, self.params1, self.data,
-                                          self.mask, self.w, self.adj, propose, self.state(js))
-        return ns, [x[0].cpu().numpy() for x in stats]
+        state = self.state(js)
+        log = self.engine.RoundLog(*(torch.zeros(1, cfg.max_rounds, dtype=dt, device=self.dev)
+                                     for dt in (torch.bool, torch.int64, torch.float32,
+                                                torch.float32, torch.float32, torch.int64)))
+        zero = torch.zeros(1, dtype=torch.long, device=self.dev)
+        carry = self.engine.Carry(state, log, zero, zero, zero)
+        moves = (self.family, cfg, self.params1, self.data, self.mask, self.w, self.adj)
+        prop = self.engine.round_propose(*moves, propose, carry)
+        carry, progress, _ = self.engine.round_update(*moves, carry, prop,
+                                                      bool(prop.any_pearl))
+        return carry.state, [x[0].cpu().numpy() for x in progress[1:7]]
 
     def refit(self, weights, descs):
         out = self.family.refit(self.data, self.t(weights)[None], self.t(descs)[None])

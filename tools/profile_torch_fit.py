@@ -1,6 +1,6 @@
 """Device-time profile of the port's fits on one GPU.
 
-  python3 tools/profile_torch_fit.py [--out FILE.json]
+  python3 tools/profile_torch_fit.py [--out FILE.json] [--eager]
 
 For each bundled AdelaideRMF scene of both protocols (H:
 findHomographies under H_PROTOCOL; F: findTwoViewMotions under
@@ -14,12 +14,15 @@ activities), and reports the number of device operations (kernels,
 copies, sets), their summed device time, the device's busy share of the
 profiled wall time, the scoring kernels' launches, and the ten device
 operations that took the most time (the full report goes to FILE.json
-with --out). Each path is warmed up by one fit of its first scene. Needs
-a CUDA device; it imports no JAX.
+with --out). Each path is warmed up by one fit of its first scene, so a
+fit runs as replays of its CUDA graphs (core/graphs.py), the port's
+default; --eager runs every fit eagerly instead (core/graphs.eager).
+Needs a CUDA device; it imports no JAX.
 """
 
 import argparse
 import collections
+import contextlib
 import json
 import os
 import subprocess
@@ -32,6 +35,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, help="write the full report here")
+    ap.add_argument("--eager", action="store_true", help="run the fits eagerly")
     args = ap.parse_args()
 
     import torch
@@ -40,6 +44,7 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("profile_torch_fit.py: no CUDA device is available")
     import progressivex_tpu_torch as px
+    from progressivex_tpu_torch.core import graphs
     from progressivex_tpu_torch.eval import extras
     from progressivex_tpu_torch.eval.adelaide import scene_kwargs
     from progressivex_tpu_torch.io.data import (ADELAIDE_F_SCENES, ADELAIDE_H_SCENES,
@@ -68,7 +73,22 @@ def main():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    report = {"device": smi, "torch": torch.__version__, "scenes": {}}
+    report = {"device": smi, "torch": torch.__version__, "eager": args.eager, "scenes": {}}
+    form = graphs.eager() if args.eager else contextlib.nullcontext()
+    with form:
+        _profile(paths, report, torch, profile, ProfilerActivity, device_operations,
+                 LAUNCHES)
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(report, f, indent=1)
+    print(smi)
+
+
+def _profile(paths, report, torch, profile, ProfilerActivity, device_operations,
+             LAUNCHES):
+    """Every path's scenes, one unprofiled and one profiled fit each, into
+    report["scenes"]."""
     for problem, (fn, scenes, inputs) in paths.items():
         fn(*inputs(scenes[0])[0], **inputs(scenes[0])[1], random_seed=0)  # warm-up
         torch.cuda.synchronize()
@@ -113,11 +133,6 @@ def main():
             report["scenes"][scene] = res
             print(scene, json.dumps({k: v for k, v in res.items() if k != "top_device_ops"}),
                   flush=True)
-    if args.out:
-        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(report, f, indent=1)
-    print(smi)
 
 
 if __name__ == "__main__":
