@@ -11,6 +11,13 @@ Phases, each of which raises on failure:
   2. holds each kernel (score_homography, score_fundamental) against its
      plain torch version on the card at its path's shapes, and times both
      beside the launch floor (one one-element kernel, timed the same way);
+     then the draws ("2 draws", `phase_draws`): every path of phases 3, 5,
+     7, 8 and 10 run eagerly, each draw of its samples on the card
+     (engine.draw: the JAX package's threefry keys and samplers) against
+     the same draw on the CPU, element for element, and the threefry
+     kernel against its plain version bit for bit at every launch shape
+     those draws gave it and at the pass F gumbel shape [64 x 6 x 512, 48],
+     timed beside its bound at each path's largest launch;
   3. drives the ported paths, each with the launch counts set to 0 just
      before it and read just after: findHomographies under the
      AdelaideRMF-H protocol and findTwoViewMotions under the AdelaideRMF-F
@@ -24,7 +31,8 @@ Phases, each of which raises on failure:
      findEssentialMatrices on the essential gauntlet's scenes
      (tests/test_gauntlet.py: two motions at seeds 0-2, three motions at
      seed 1, three restarts), scored by the fundamental kernel, against
-     the gauntlet's gates, beside the JAX package's CPU ME;
+     the gauntlet's gates, beside the JAX package's CPU ME; every fit
+     draws its samples through the threefry kernel, which must have run;
   4. fits one scene of the H, F, line, VP and essential paths on the card
      and on the CPU and compares them;
   5. drives the batched front ends (findHomographiesBatched,
@@ -87,10 +95,10 @@ Phases, each of which raises on failure:
      three, E two-0, lines-0, vp-0, T-LESS, phase 5's batched H and F and
      the dataset pass's H 2304 bucket, each in its eager form and as CUDA
      graphs (cold, then warm), every FitResult and launch count bit for
-     bit the eager run's, at most two host reads a round and none from
-     the captured code, with cold, warm and eager seconds, warm-up and
-     capture seconds, peak reserved memory and the busy share of a warm
-     run; then cfg.unroll_rounds (rounds and tail in one graph) against
+     bit the eager run's, no host read before the rounds, at most two a
+     round and none from the captured code, with cold, warm and eager
+     seconds, warm-up and capture seconds, peak reserved memory and the
+     busy share of a warm run; then cfg.unroll_rounds (rounds and tail in one graph) against
      the per-round graphs.
 Phases 3-9 run the fits as CUDA graphs, the port's default on the card;
 phase 6's phase times, phase 7's timed moves and phase 9's profiled fit
@@ -926,6 +934,155 @@ def _captured_launch_case(torch, dev, name, lane_scenes, restarts, b, trunc_sq,
     return case
 
 
+# Integer operations of the threefry2x32 block a counter
+# (csrc/threefry.cu): 20 rounds of add, rotate (shift, shift, or) and xor,
+# 5 key injections of 3 adds, the 2 adds of the first injection and the
+# key schedule's 2 xors; 1 more (the xor of the two words) for bits.
+THREEFRY_OPS = 20 * 5 + 5 * 3 + 2 + 2
+# The pass F P-NAPSAC gumbel field: 64 rows x 6 rounds of keys, 512
+# hypotheses x 48 neighbor slots each, [64 x 6 x 512, 48] words.
+GUMBEL_F_SHAPE = (64 * 6, 512 * 48, False, False)
+
+
+def _threefry_bound(n_keys, count, pair, offsets):
+    """Least time of one threefry launch on an H100: its integer
+    operations over the card's float32 rate (the table of peak rates has
+    no integer row outside the tensor cores; the int32 units issue at half
+    that rate, so the bound is a low one) against its bytes over the HBM
+    rate: 4 a word written, 16 a key and 8 an offset read."""
+    words = n_keys * count * (2 if pair else 1)
+    ops = n_keys * count * (THREEFRY_OPS + (0 if pair else 1))
+    nbytes = words * 4 + n_keys * (16 + (8 if offsets else 0))
+    t_ops = ops / PEAK_F32_FLOP_S * 1e3
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _threefry_case(torch, dev, shape, label, rng, timed):
+    """The threefry kernel against its plain version on the same CUDA
+    tensors, bit for bit, at one launch shape (keys, counters a key,
+    pair, offsets) with random keys (and offsets); with `timed`, the C
+    launch alone by graph replay, the plain version, the wrapper on the
+    host and the launch floor beside the bound."""
+    from progressivex_tpu_torch.kernels import threefry as kt
+
+    n_keys, count, pair, has_off = shape
+    keys = torch.as_tensor(rng.integers(0, 2**32, (n_keys, 2)), dtype=torch.int64,
+                           device=dev)
+    offsets = (torch.as_tensor(rng.integers(0, 2**32, n_keys), dtype=torch.int64,
+                               device=dev) if has_off else None)
+    got = kt.threefry_cuda(keys, count, pair, offsets)
+    want = kt.threefry_plain(keys, count, pair, offsets)
+    torch.cuda.synchronize()
+    case = {"kernel": "threefry", "label": label, "keys": n_keys, "count": count,
+            "pair": pair, "offsets": has_off, "bit_equal": torch.equal(got, want),
+            "max_abs_err": 0 if torch.equal(got, want) else
+            float((got.double() - want.double()).abs().max())}
+    if timed:
+        kernel = kt._kernel()
+        out = torch.empty(n_keys * count * (2 if pair else 1), dtype=torch.int32, device=dev)
+
+        def launch():
+            e = kernel(keys.data_ptr(), None if offsets is None else offsets.data_ptr(),
+                       n_keys, count, int(pair), out.data_ptr(),
+                       torch.cuda.current_stream().cuda_stream)
+            if e:
+                raise RuntimeError(f"threefry: CUDA error {e}")
+
+        bound, bound_by = _threefry_bound(n_keys, count, pair, has_off)
+        floor = torch.zeros(1, device=dev)
+        case.update({"ms": _device_ms(launch), "launch_floor_ms": _device_ms(floor.zero_),
+                     "plain_ms": _device_ms(lambda: kt.threefry_plain(keys, count, pair,
+                                                                      offsets)),
+                     "wrapper_ms": _host_ms(lambda: kt.threefry_cuda(keys, count, pair,
+                                                                     offsets)),
+                     "bound_ms": bound, "bound_by": bound_by})
+    print("kernel case", json.dumps(case), flush=True)
+    if not case["bit_equal"]:
+        raise AssertionError(f"threefry differs from its plain version at {label} {shape}")
+    return case
+
+
+def _draw_paths(torch):
+    """(label, call) of phase 2's draws: phase 10's paths (the single-scene
+    paths of phase 3, phase 5's batched H and F, the dataset pass's H 2304
+    bucket), the dataset pass's F bucket (16 lanes x 4 restarts, whose
+    P-NAPSAC gumbel field is a fit's largest threefry launch) and phase
+    8's hyp axis (unihouse H at hyp 4, book F at hyp 2)."""
+    from progressivex_tpu_torch.eval import adelaide
+    from progressivex_tpu_torch.parallel.sharding import make_mesh
+
+    prep = adelaide._prepare("F", _synth_roots()["F"], 1, None, None)
+    bucket = max(prep.plan, key=lambda b: b.rows)
+    card = torch.device("cuda", 0)
+    paths = _compiled_paths()
+    paths.append((f"F pass bucket {bucket.n_pad} x {bucket.rows} rows",
+                  lambda: adelaide._run(prep, bucket, 0, "cuda", None)))
+    for problem, scene, hyp in (("H", "unihouse", 4), ("F", "book", 2)):
+        paths.append((f"{problem} {scene} hyp {hyp}", lambda p=problem, s=scene, h=hyp:
+                      _mesh_fit(torch, p, s, make_mesh(1, h, devices=[card] * h))))
+    return paths
+
+
+def phase_draws(torch, dev):
+    """The draw of the samples on the card, path by path (`_draw_paths`,
+    each fit eager, core/graphs.eager): every engine.draw on the card
+    against the same draw on the CPU (the same keys, counts and kNN
+    tables, copied) element for element, and the threefry kernel against
+    its plain version bit for bit at every launch shape those draws gave
+    it, and at GUMBEL_F_SHAPE; timed at each path's largest launch and at
+    GUMBEL_F_SHAPE. Returns (draw rows, kernel cases)."""
+    from progressivex_tpu_torch.core import engine, graphs
+    from progressivex_tpu_torch.kernels import threefry as kt
+
+    orig_draw, orig_cuda = engine.draw, kt.threefry_cuda
+    label, shapes, draws, failures = [None], {}, [], []
+
+    def seen(keys, count, pair, offsets=None):
+        shapes.setdefault((keys.shape[0], int(count), bool(pair), offsets is not None),
+                          label[0])
+        return orig_cuda(keys, count, pair, offsets)
+
+    def both(family, cfg, n_valid, keys, prep):
+        card = orig_draw(family, cfg, n_valid, keys, prep)
+        host = orig_draw(family, cfg, n_valid.cpu(), keys.cpu(), prep._replace(
+            samp_idx=prep.samp_idx.cpu(), samp_mask=prep.samp_mask.cpu()))
+        same = [torch.equal(a.cpu(), b) for a, b in zip(card, host)]
+        row = {"path": label[0], "keys": list(keys.shape), "sampler_id": cfg.sampler_id,
+               "samples": list(card[0].shape), "extension": list(card[2].shape),
+               "equal": same}
+        print("draw card against CPU", json.dumps(row), flush=True)
+        draws.append(row)
+        if not all(same):
+            failures.append(f"{label[0]}: the card's draw differs from the CPU's {same}")
+        return card
+
+    engine.draw, kt.threefry_cuda = both, seen
+    try:
+        with graphs.eager():
+            for name, call in _draw_paths(torch):
+                label[0] = name
+                call()
+    finally:
+        engine.draw, kt.threefry_cuda = orig_draw, orig_cuda
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(0)
+    largest = {}
+    for shape, name in shapes.items():
+        if shape[0] * shape[1] > largest.get(name, (0, 0, 0, 0))[0] * largest.get(
+                name, (0, 0, 0, 0))[1]:
+            largest[name] = shape
+    timed = set(largest.values()) | {GUMBEL_F_SHAPE}
+    cases = [_threefry_case(torch, dev, shape, name, rng, shape in timed)
+             for shape, name in sorted(shapes.items())]
+    if GUMBEL_F_SHAPE not in shapes:
+        cases.append(_threefry_case(torch, dev, GUMBEL_F_SHAPE, "pass F gumbel", rng, True))
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return draws, cases
+
+
+
 PATHS = {
     # problem: (entry point, kernel, scenes, JAX CPU ME)
     "H": ("findHomographies", "score_homography",
@@ -958,8 +1115,7 @@ def phase_main_path(torch, problem):
     results = {}
     for scene in scenes:
         corrs, gt = load_corr_scene(scene)
-        for k in LAUNCHES:
-            LAUNCHES[k] = 0
+        _zero_launches()
         t0 = time.perf_counter()
         models, labels, stats = _fit(problem, corrs)
         torch.cuda.synchronize()
@@ -970,6 +1126,7 @@ def phase_main_path(torch, problem):
                "jax_cpu_me": jax_me[scene], "wall_s": wall,
                "n_models": models.shape[0] // 3, "launches": launches[kernel],
                "other_launches": {k: v for k, v in launches.items() if k != kernel},
+               "threefry_launches": _threefry_launches(scene),
                "restart": stats.restart, "restart_energies": stats.restart_energies}
         print("main path", json.dumps(res), flush=True)
         if launches[kernel] <= 0:
@@ -1035,6 +1192,11 @@ def _batched(problem, names, **kw):
     return out
 
 
+# Phase 5's batched outputs of H and F, which phase 8's sharded calls must
+# equal bit for bit (kept even when a phase 5 gate fails).
+BATCHED_OUTPUTS = {}
+
+
 def phase_batched(torch, problem):
     """The batched front end of `problem` on its bundled scenes, on the
     card, with the launch counts set to 0 just before it and read just
@@ -1056,6 +1218,7 @@ def phase_batched(torch, problem):
     batch = _batched(problem, scenes)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    BATCHED_OUTPUTS[problem] = batch  # phase 8's reference, whatever the gates say
     launches = dict(LAUNCHES)
     res = {"problem": problem, "entry": BATCHED[problem], "scenes": list(scenes),
            "wall_s": wall, "launches": launches[kernel],
@@ -1141,10 +1304,23 @@ def _new_path(problem):
 
 
 def _zero_launches():
+    from progressivex_tpu_torch.kernels import threefry
     from progressivex_tpu_torch.kernels.scoring import LAUNCHES
 
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, threefry.LAUNCHES, threefry.KEYS):
+        for k in counts:
+            counts[k] = 0
+
+
+def _threefry_launches(label):
+    """threefry's launches since `_zero_launches`: every fit draws its
+    samples on the card through it, so a path without one fails."""
+    from progressivex_tpu_torch.kernels.threefry import LAUNCHES
+
+    n = LAUNCHES["threefry"]
+    if n <= 0:
+        raise AssertionError(f"{label}: threefry never launched")
+    return n
 
 
 def _no_launches(label):
@@ -1219,7 +1395,8 @@ def phase_new_path(torch, problem):
     res = {"problem": problem, "entry": entry, "scene": name, "points": len(gt),
            "me": float(misclassification(labels, gt)), "jax_cpu_me": jax_me,
            "wall_s": wall, "n_models": _n_models(problem, models),
-           "rounds": stats.rounds_run, "launches": _no_launches(name)}
+           "rounds": stats.rounds_run, "launches": _no_launches(name),
+           "threefry_launches": _threefry_launches(name)}
     print("main path", json.dumps(res), flush=True)
     _check_outputs(problem, name, models, labels, len(gt))
     if res["me"] > jax_me + ME_SLACK:
@@ -1252,7 +1429,8 @@ def phase_tless(torch):
                "points": len(xy), "wall_s": wall, "n_models": models.shape[0] // 3,
                "pose_errors": errs, "restart": stats.restart,
                "restart_energies": stats.restart_energies,
-               "launches": _no_launches("tless")}
+               "launches": _no_launches("tless"),
+               "threefry_launches": _threefry_launches("tless")}
         print("main path", json.dumps(res), flush=True)
         if res["n_models"] < 2:
             failures.append(f"tless seed {seed}: {res['n_models']} instances")
@@ -1428,6 +1606,7 @@ def phase_essential(torch):
                "launches": launches["score_fundamental"],
                "other_launches": {n: v for n, v in launches.items()
                                   if n != "score_fundamental"},
+               "threefry_launches": _threefry_launches(name),
                "restart": stats.restart, "restart_energies": stats.restart_energies,
                "gate": "printed only" if gate is None else gate}
         print("main path", json.dumps(res), flush=True)
@@ -1649,7 +1828,7 @@ def phase_dataset_pass(torch):
 def phase_grid(torch):
     """One H scene (oldclassicswing, padded to 384) through engine.fit with
     neighborhood="grid" (the H protocol's radius, 200, as the cell width)
-    on the card and on the CPU from the same generator seed: the kernel
+    on the card and on the CPU from the same key: the kernel
     ran on the card, the same number of models, labels apart on at most
     LABEL_DISAGREEMENT_MAX of the points."""
     from progressivex_tpu_torch.api import _pad_to
@@ -1659,6 +1838,7 @@ def phase_grid(torch):
     from progressivex_tpu_torch.io.metrics import misclassification
     from progressivex_tpu_torch.kernels.scoring import LAUNCHES
     from progressivex_tpu_torch.models import get_family
+    from progressivex_tpu_torch.ops import prng
 
     corrs, gt = load_corr_scene("oldclassicswing")
     n, n_pad = len(corrs), _pad_to(len(corrs))
@@ -1677,7 +1857,7 @@ def phase_grid(torch):
                          torch.from_numpy(data).to(dev),
                          (torch.arange(n_pad) < n).to(dev),
                          (torch.arange(n_pad) < n).float().to(dev),
-                         generator=torch.Generator().manual_seed(0))
+                         key=prng.key(0, dev))
         descs, labels = engine.compact_result(fit, n)
         out[dev] = (descs.shape[0], labels, dict(LAUNCHES))
     k = out["cuda"][0]
@@ -1818,6 +1998,7 @@ def _mesh_fit(torch, problem, scene, mesh, seed=0):
     from progressivex_tpu_torch.io.data import load_corr_scene
     from progressivex_tpu_torch.io.metrics import misclassification
     from progressivex_tpu_torch.kernels.scoring import LAUNCHES, ROWS
+    from progressivex_tpu_torch.ops import prng
     from progressivex_tpu_torch.parallel.sharding import fit_batch
 
     corrs, gt = load_corr_scene(scene)
@@ -1835,7 +2016,7 @@ def _mesh_fit(torch, problem, scene, mesh, seed=0):
         ROWS[k] = 0
     t0 = time.perf_counter()
     res = fit_batch(MESH_FAMILIES[problem], cfg, params._replace(n_valid=n), data, mask,
-                    weights, [seed], mesh=mesh)
+                    weights, prng.key(seed, home)[None], mesh=mesh)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, rows = LAUNCHES[kernel], ROWS[kernel]
@@ -1888,7 +2069,7 @@ def _hyp_code_sites(sites):
             if site.rsplit(":", 1)[0] == path and int(site.rsplit(":", 1)[1]) in own}
 
 
-def phase_mesh(torch, batched):
+def phase_mesh(torch):
     """The device mesh on the card (module docstring, phase 8)."""
     from progressivex_tpu_torch.parallel import sharding
     from progressivex_tpu_torch.parallel.sharding import make_mesh
@@ -1987,7 +2168,8 @@ def phase_mesh(torch, batched):
     try:
         for label, kw in meshes:
             for problem in ("H", "F"):
-                if batched.get(problem) is None:
+                ref = BATCHED_OUTPUTS.get(problem)
+                if ref is None:
                     raise AssertionError(f"phase 5 {problem} gave no result to hold against")
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -2002,7 +2184,6 @@ def phase_mesh(torch, batched):
                 for sh in shards:
                     start, end = sh.pop("events")
                     sh["device_span_ms"] = start.elapsed_time(end)
-                ref = batched[problem]["outputs"]
                 same = {n: bool(np.array_equal(got[n][0], ref[n][0])
                                 and np.array_equal(got[n][1], ref[n][1])) for n in ref}
                 call = {"mesh": label, "problem": problem, "same_bits": same,
@@ -2280,6 +2461,60 @@ def _record_fits(engine):
     return seen, lambda: setattr(engine, "fit_rows", orig)
 
 
+_READS = ("__bool__", "__int__", "__float__", "__index__", "item", "tolist", "cpu",
+          "numpy")
+
+
+def _host_reads(torch, call):
+    """call() with every host read of a CUDA tensor (torch.Tensor's
+    __bool__, __int__, __float__, __index__, item, tolist, cpu, numpy)
+    counted by where its fit stood: "before" its rounds (from
+    engine.fit_rows' call to its first round graph, "propose" or
+    "rounds"), in its "rounds" (to its "finish" graph), or "after".
+    Returns {where: reads}."""
+    from progressivex_tpu_torch.core import engine, graphs
+
+    counts = {"before": 0, "rounds": 0, "after": 0, "outside": 0}
+    where = ["outside"]
+    saved = {name: getattr(torch.Tensor, name) for name in _READS}
+
+    def counting(name):
+        fn = saved[name]
+
+        def read(self, *a, **k):
+            if self.is_cuda:
+                counts[where[0]] += 1
+            return fn(self, *a, **k)
+        return read
+
+    fit_rows, stage = engine.fit_rows, graphs._Graphs.stage
+
+    def watched_fit_rows(*a, **k):
+        where[0] = "before"
+        try:
+            return fit_rows(*a, **k)
+        finally:
+            where[0] = "outside"
+
+    def watched_stage(self, name, fn, outs=None):
+        if name in ("propose", "rounds") and where[0] == "before":
+            where[0] = "rounds"
+        elif name == "finish":
+            where[0] = "after"
+        return stage(self, name, fn, outs)
+
+    engine.fit_rows, graphs._Graphs.stage = watched_fit_rows, watched_stage
+    for name in _READS:
+        setattr(torch.Tensor, name, counting(name))
+    try:
+        call()
+    finally:
+        for name, fn in saved.items():
+            setattr(torch.Tensor, name, fn)
+        engine.fit_rows, graphs._Graphs.stage = fit_rows, stage
+    return counts
+
+
 def _round_read_sites(sites):
     """The entries of `sites` at the round loop's two host reads in
     core/graphs.py (the lines that read a flag with bool())."""
@@ -2300,16 +2535,19 @@ def phase_compiled_fit(torch):
     once, then the graph form cold (every graph dropped first: warm-up +
     capture + replay) and warm three times. Every FitResult of the graph
     form's runs (descriptors, labels, energy, round log, samples drawn,
-    models, every field) and the kernels' LAUNCHES and ROWS must equal
+    models, every field) and the kernels' launch counts (the scoring
+    kernels' LAUNCHES and ROWS, threefry's launches and keys) must equal
     the eager run's bit for bit. One more warm run under
-    torch.cuda.set_sync_debug_mode("warn") counts the host reads: at most
-    two a round, at the round loop's reads in core/graphs.py, and none
-    from core/pearl.py, ops/labeling.py or kernels/scoring.py; one warm
-    run under torch.profiler gives the device's busy share (device
+    torch.cuda.set_sync_debug_mode("warn") counts the synchronizations:
+    at most two a round, at the round loop's reads in core/graphs.py, and
+    none from core/pearl.py, ops/labeling.py or kernels/scoring.py; one
+    with every host read of a CUDA tensor counted (`_host_reads`): none
+    before the rounds (the draw of the samples runs in the start graph),
+    at most two a round; one warm run under torch.profiler gives the device's busy share (device
     operations' time over the wall time, as tools/profile_torch_fit.py
     takes it). Prints, a path: eager, cold (and of it warm-up and
-    capture) and warm (median) seconds, host reads a round, peak
-    reserved memory of each form and the busy share. Then H on
+    capture) and warm (median) seconds, host reads before the rounds and a
+    round, peak reserved memory of each form and the busy share. Then H on
     oldclassicswing with cfg.unroll_rounds (all rounds and the tail in one
     graph) against the per-round graphs, bit for bit."""
     import dataclasses
@@ -2319,14 +2557,15 @@ def phase_compiled_fit(torch):
     from progressivex_tpu_torch.core import engine, graphs
     from progressivex_tpu_torch.io.data import load_corr_scene
     from progressivex_tpu_torch.io.profiling import device_operations
+    from progressivex_tpu_torch.kernels import threefry
     from progressivex_tpu_torch.kernels.scoring import LAUNCHES, ROWS
 
     def run(call):
-        """(seconds, FitResults' bytes, launches, rows) of one call."""
+        """(seconds, FitResults' bytes, launches, rows or keys) of one call."""
         seen, undo = _record_fits(engine)
-        for counts in (LAUNCHES, ROWS):
-            for k in counts:
-                counts[k] = 0
+        _zero_launches()
+        for k in ROWS:
+            ROWS[k] = 0
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2336,10 +2575,11 @@ def phase_compiled_fit(torch):
         finally:
             undo()
         passes = sum(int(r.rounds_run.max()) for r in seen)
-        return wall, [_fit_fields(r) for r in seen], dict(LAUNCHES), dict(ROWS), passes
+        return (wall, [_fit_fields(r) for r in seen], {**LAUNCHES, **threefry.LAUNCHES},
+                {**ROWS, **threefry.KEYS}, passes)
 
     failures, table = [], []
-    total = {k: 0 for k in LAUNCHES}
+    total = {}
     for label, call in _compiled_paths():
         graphs.clear()
         torch.cuda.empty_cache()
@@ -2357,6 +2597,7 @@ def phase_compiled_fit(torch):
         graph_mem = torch.cuda.max_memory_reserved()
         _, sites = _sync_sites(torch, lambda: run(call))
         round_reads = _round_read_sites(sites)
+        reads = _host_reads(torch, lambda: run(call))
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             call()
@@ -2369,6 +2610,8 @@ def phase_compiled_fit(torch):
                "graphs": builds["graphs"],
                "warm_s": statistics.median(r[0] for r in runs[1:]),
                "round_passes": passes,
+               "host_reads_before_rounds": reads["before"],
+               "host_reads_a_round": reads["rounds"] / max(passes, 1),
                "host_reads_per_round": sum(round_reads.values()) / max(passes, 1),
                "sync_sites": sites, "reserved_eager_bytes": eager_mem,
                "reserved_graph_bytes": graph_mem, "busy_share_warm": busy / wall_prof,
@@ -2377,8 +2620,8 @@ def phase_compiled_fit(torch):
                "counts_equal": [r[2] == want_l and r[3] == want_r for r in runs]}
         print("compiled fit", json.dumps(row), flush=True)
         table.append(row)
-        for k in total:
-            total[k] += want_l[k]
+        for k, v in want_l.items():
+            total[k] = total.get(k, 0) + v
         if not all(row["bit_equal"]):
             bad = sorted({f for r in runs for a, b in zip(r[1], want) for f in a
                           if a[f] != b.get(f)})
@@ -2386,8 +2629,12 @@ def phase_compiled_fit(torch):
         if not all(row["counts_equal"]):
             failures.append(f"{label}: launches {[r[2] for r in runs]} rows "
                             f"{[r[3] for r in runs]}, eager {want_l} {want_r}")
-        if row["host_reads_per_round"] > 2:
-            failures.append(f"{label}: {row['host_reads_per_round']} host reads a round")
+        if row["host_reads_per_round"] > 2 or row["host_reads_a_round"] > 2:
+            failures.append(f"{label}: {row['host_reads_per_round']} synchronizing and "
+                            f"{row['host_reads_a_round']} host reads a round")
+        if row["host_reads_before_rounds"] != 0:
+            failures.append(f"{label}: {row['host_reads_before_rounds']} host reads "
+                            "before the rounds")
         own = {k: v for k, v in sites.items() if any(
             m in k for m in ("core/pearl.py", "ops/labeling.py", "kernels/scoring.py"))}
         if own:
@@ -2460,6 +2707,37 @@ def _kernel_line(name, cases, worst_abs, results, main_shape, pallas_lines,
     }
 
 
+def _threefry_line(draw_phase, results):
+    """The threefry kernel's entry of the {"kernels": ...} line: its
+    launches in phase 3's timed fits (H, F, E, lines, VPs), its time
+    beside its bound at GUMBEL_F_SHAPE, and every timed launch shape of
+    phase 2's draws."""
+    draws, cases = draw_phase
+    main_case = next(c for c in cases if "ms" in c and (
+        c["keys"], c["count"], c["pair"], c["offsets"]) == GUMBEL_F_SHAPE)
+    return {
+        "name": "threefry", "route": "cuda",
+        "source": "progressivex_tpu_torch/csrc/threefry.cu",
+        "replaces": "progressivex_tpu/core/engine.py:850",
+        "replaces_note": "jax.random's threefry2x32 under progx_sampling, lowered by "
+                         "XLA (engine.py:850-885); no Pallas kernel",
+        "launches": sum(r["threefry_launches"] for p in results.values()
+                        for r in p.values()),
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
+        "library_ms": None,
+        "shape": [main_case["keys"], main_case["count"]],
+        "wrapper_ms": main_case["wrapper_ms"],
+        "launch_floor_ms": main_case["launch_floor_ms"],
+        "shapes_checked": len(cases),
+        "draws_card_equal_cpu": all(all(d["equal"]) for d in draws),
+        "timed": [{k: c[k] for k in ("label", "keys", "count", "pair", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "launch_floor_ms")}
+                  for c in cases if "ms" in c],
+    }
+
+
 def main():
     try:
         import torch
@@ -2485,6 +2763,7 @@ def main():
 
     _timed("1 synth data", phase_synth_data)
     kernel_phase = _timed("2 kernels", phase_kernel, torch, dev)
+    draw_phase = _timed("2 draws", phase_draws, torch, dev)
     results = {p: _timed(f"3 {p}", phase_main_path, torch, p) for p in ("H", "F")}
     new = {p: _timed(f"3 {p}", phase_new_path, torch, p) for p in ("L", "V")}
     _timed("3 P", phase_tless, torch)
@@ -2506,7 +2785,7 @@ def main():
     dataset_pass = _timed("7 pass", phase_dataset_pass, torch)
     _timed("7 grid", phase_grid, torch)
     _timed("7 sync", phase_moves_sync, torch)
-    mesh = _timed("8 mesh", phase_mesh, torch, batched)
+    mesh = _timed("8 mesh", phase_mesh, torch)
     real = _timed("9 real images", phase_real_images, torch)
     compiled = _timed("10 compiled fit", phase_compiled_fit, torch)
     print(f"total seconds {time.perf_counter() - t_start:.3f}", flush=True)
@@ -2538,6 +2817,9 @@ def main():
     kernels[0]["launches_real_images"] = real["launches"]
     for k in kernels:
         k["captured_launch_bit_equal"] = all(captured[k["name"]]["bit_equal"])
+    kernels.append(_threefry_line(draw_phase, {**results, "L": {"lines-0": new["L"]},
+                                               "V": {"vp-0": new["V"]}}))
+    for k in kernels:
         k["launches_compiled_fit"] = compiled["launches"][k["name"]]
     print("bench", json.dumps(bench), flush=True)
     print("bench essential", json.dumps(bench_e), flush=True)

@@ -10,9 +10,10 @@
 labeling[i] in {0..K-1} names the instance, K means outlier. Keywords and
 defaults are the JAX package's, plus `device`: the fit runs on the CUDA
 device unless `device="cpu"` is passed, and raises without a CUDA device.
-`random_seed` seeds the CPU torch.Generator the samples are drawn from,
-so the card and the CPU fit the same samples; torch's numbers differ
-from jax.random's, so a seed does not reproduce the JAX package's run.
+`random_seed` makes the JAX package's key, PRNGKey(random_seed)
+(ops/prng.py), from which the fit draws its samples on its device as the
+JAX package draws them: a seed gives the JAX package's samples bit for
+bit, on the card and on the CPU.
 `progress_callback` receives one dict per round and restart, as the JAX
 package's (core/engine.LIVE_CALLBACK); `with_statistics="phases"` runs the
 fit once more, eagerly, under torch.profiler and fills
@@ -35,6 +36,7 @@ from progressivex_tpu_torch._device import resolve_device
 from progressivex_tpu_torch.core import engine
 from progressivex_tpu_torch.core.config import EngineConfig, make_params
 from progressivex_tpu_torch.models import get_family
+from progressivex_tpu_torch.ops import prng
 
 _PAD = 128
 _MAX_HYP = 2048
@@ -156,7 +158,7 @@ def _run(family_name, data, weights, *, threshold, conf,
 
     def fit_once():
         return engine.fit(family, cfg, params, *inputs,
-                          generator=torch.Generator().manual_seed(int(random_seed)),
+                          key=prng.key(random_seed, dev),
                           graph_data=graph_t)
 
     engine.LIVE_CALLBACK = progress_callback

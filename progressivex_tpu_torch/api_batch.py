@@ -20,18 +20,16 @@ and the winning restart of each lane is chosen on the host
 (`engine.select_restart`). Outputs match the single-scene front ends
 element for element.
 
-Seeds. Row (scene s, restart r) at pad level n_pad draws its samples from
-a CPU torch.Generator seeded with
+Seeds. Row (scene s, restart r) at pad level n_pad draws its samples on
+the device from the JAX package's key of that row (ops/prng.py),
 
-    np.random.SeedSequence([random_seed, n_pad, s, r]).generate_state(1)[0]
+    fold_in(fold_in(fold_in(PRNGKey(random_seed), n_pad), s), r)
 
-where s is the scene's index in `corrs_list`, never the row's position,
-as the JAX package derives its row keys (api_batch.py:212-227). A scene
-fitted alone, inside a bigger batch or replicated returns the same result;
-filler lanes share their original's seed and are discarded. The numbers
-differ from jax.random's, so a seed does not reproduce the JAX package's
-run, and they differ from the single-scene front ends' (one generator for
-all restarts).
+where s is the scene's index in `corrs_list`, never the row's position
+(progressivex_tpu/api_batch.py:212-227), so a seed draws the JAX
+package's samples bit for bit. A scene fitted alone, inside a bigger
+batch or replicated returns the same result; filler lanes share their
+original's key and are discarded.
 
 Keywords and defaults are the JAX package's, plus `device` (the card
 unless `device="cpu"`). `mesh` (a `parallel/sharding.Mesh` with a
@@ -39,7 +37,7 @@ unless `device="cpu"`). `mesh` (a `parallel/sharding.Mesh` with a
 visible cards) shards each pad level's rows contiguously over the scenes
 axis, as the JAX package's shard_map does (api_batch.py:47-100): lanes
 round up to the axis size, each shard runs on its scenes device in a host
-thread of its own, and `device` is not read. Seeds do not change, so a
+thread of its own, and `device` is not read. Keys do not change, so a
 scene gives the same bits sharded and unsharded. The scenes axis only:
 the batched front ends set no hyp axis, as in the JAX package.
 """
@@ -56,6 +54,7 @@ from progressivex_tpu_torch._device import resolve_device
 from progressivex_tpu_torch.core import engine
 from progressivex_tpu_torch.core.config import EngineConfig, make_params
 from progressivex_tpu_torch.models import get_family
+from progressivex_tpu_torch.ops import prng
 from progressivex_tpu_torch.parallel import sharding
 
 
@@ -63,10 +62,14 @@ def _next_pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
 
 
-def row_seed(random_seed: int, n_pad: int, scene: int, restart: int) -> int:
-    """The seed of row (scene, restart) at pad level n_pad."""
-    return int(np.random.SeedSequence(
-        [int(random_seed), int(n_pad), int(scene), int(restart)]).generate_state(1)[0])
+def row_keys(random_seed: int, n_pad: int, scenes, restarts, device=None):
+    """The keys [len(scenes), 2] of rows (scenes[i], restarts[i]) at pad
+    level n_pad, on `device`: the JAX package's
+    fold_in(fold_in(fold_in(PRNGKey(random_seed), n_pad), s), r)."""
+    base = prng.fold_in(prng.key(random_seed, device), int(n_pad))
+    s = torch.as_tensor(np.asarray(scenes, np.int64), device=device)
+    r = torch.as_tensor(np.asarray(restarts, np.int64), device=device)
+    return prng.fold_in(prng.fold_in(base, s), r)
 
 
 def _resolve_mesh(mesh, n_devices):
@@ -139,14 +142,16 @@ def _run_batched(
     device=None,
     pad_to=None,
     lanes=None,
+    keys=None,
     **setup,
 ):
     """The batched fit of `datas`, one `engine.fit_rows` call a pad level
     (sharded over the mesh's scenes axis when there is one); `setup` holds
     `engine_setup`'s keywords. `pad_to` puts every scene in one given pad
     level and `lanes` sets its lane count in place of the next power of
-    two of the scene count: the dataset harness's own bucket and lane plan
-    (eval/adelaide)."""
+    two of the scene count, and `keys` [lanes * n_restarts, 2] gives the
+    rows' keys in place of `row_keys`': the dataset harness's own bucket,
+    lane plan and keys (eval/adelaide)."""
     mesh = _resolve_mesh(mesh, n_devices)
     dev = resolve_device(device) if mesh is None else mesh.devices[0, 0]
     n_scene_axis = 1 if mesh is None else mesh.shape["scenes"]
@@ -194,17 +199,20 @@ def _run_batched(
             t = torch.from_numpy(np.concatenate([a] * n_restarts))
             return t if mesh is not None else t.to(dev)  # a shard goes to its device
 
-        gens = [torch.Generator().manual_seed(row_seed(random_seed, n_pad, s, r))
-                for r in range(n_restarts) for s in lane_ids]
+        if keys is None:
+            row_k = row_keys(random_seed, n_pad, lane_ids * n_restarts,
+                             np.repeat(np.arange(n_restarts), n_lanes), dev)
+        else:
+            row_k = torch.as_tensor(keys).to(dev)
         row_params = params._replace(n_valid=np.tile(nv, n_restarts),
                                      threshold=np.tile(th, n_restarts))
         row_args = (tile(data), tile(mask), tile(wts))
         row_graph = None if gd is None else tile(gd)
         if mesh is None:
-            res = engine.fit_rows(family, cfg, row_params, *row_args, generators=gens,
+            res = engine.fit_rows(family, cfg, row_params, *row_args, keys=row_k,
                                   graph_data=row_graph)
         else:
-            res = sharding.fit_rows_sharded(family, cfg, row_params, *row_args, gens,
+            res = sharding.fit_rows_sharded(family, cfg, row_params, *row_args, row_k,
                                             mesh, graph_data=row_graph)
         energy = res.energy.cpu().numpy().reshape(n_restarts, n_lanes)
         nmod = res.n_models.cpu().numpy().reshape(n_restarts, n_lanes)

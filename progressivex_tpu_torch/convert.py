@@ -1,7 +1,7 @@
 """Carries state from the JAX package into the port.
 
 This system learns no weights; what defines a run is its configuration,
-its runtime parameters, its samples and its fit state. These functions
+its runtime parameters, its keys or samples and its fit state. These functions
 take the JAX package's values as plain Python or numpy values (a caller
 applies `dataclasses.asdict`, `NamedTuple._asdict` and `np.asarray` on
 its side) and return the port's. Tensors are copies, placed on the
@@ -44,6 +44,17 @@ def _tensor(x, dtype, device):
     return torch.tensor(np.asarray(x, dtype), device=resolve_device(device))
 
 
+def key_from_jax(key_data, *, device):
+    """The port's keys [..., 2] (int64 holding uint32 words, ops/prng.py)
+    from the JAX package's raw keys: a uint32 [..., 2] array, such as
+    `np.asarray(jax.random.key_data(k))` or a PRNGKey array."""
+    words = np.asarray(key_data)
+    if words.shape[-1:] != (2,) or words.dtype != np.uint32:
+        raise ValueError(f"JAX keys of shape {words.shape} and type {words.dtype}: "
+                         "expected uint32 [..., 2]")
+    return _tensor(words.astype(np.int64), np.int64, device)
+
+
 def presampled(idx_all, ok_all, idx_ext, ok_ext, *, device):
     """The engine's `presampled` tuple from the JAX package's sample
     arrays ([R, B, m] indices, [R, B] flags, and the extension pool)."""
@@ -59,8 +70,9 @@ def presampled_rows(idx_all, ok_all, idx_ext, ok_ext, *, device):
     pad level n_pad with the key
     fold_in(fold_in(fold_in(PRNGKey(seed), n_pad), s), r)
     (progressivex_tpu/api_batch.py:212-227), and inside the fit each row
-    splits it as `engine.fit` does; the caller draws with those keys on
-    its side and hands the arrays here."""
+    splits it as `engine.fit` does; the port draws the same samples from
+    the same keys (api_batch.row_keys), and a caller that hands the JAX
+    arrays here replaces that draw."""
     shapes = [np.shape(a) for a in (idx_all, ok_all, idx_ext, ok_ext)]
     if [len(s) for s in shapes] != [4, 3, 4, 3] or shapes[1][::2] != shapes[0][::2] \
             or shapes[3][::2] != shapes[0][::2] or shapes[2][::2] != shapes[0][::2] \

@@ -37,21 +37,25 @@ relabel. A fit may build its principal-axis sort and kNN graph on other
 coordinates than the model's (`graph_data`: the 6D-pose front ends' pixel
 and world rows).
 
-Samples are drawn for all rounds before the loop, on CPU generators, one
-a row, so that the card and the CPU see the same samples for the same
-seeds; a row's generator draws all of that row's rounds, then its
-extension sub-batches. `fit` hands every restart the same generator, so
-restart 0 draws first, then restart 1, and so on. The `presampled`
-argument replaces the draws (a test replays the JAX package's exact
-samples through it).
+Samples are drawn for all rounds before the loop, on the fit's device,
+from a key a row (ops/prng.py, the JAX package's threefry keys) as the
+JAX package's `_fit_prepared` draws them
+(progressivex_tpu/core/engine.py:836-885): the row's key split into
+max_rounds round keys, each drawing one proposal batch, and
+fold_in(key, 0x5B) split into the n_sub - 1 extension keys (`draw`).
+`fit` splits its key into its restarts' keys (the key itself for one
+restart), as the JAX package's `fit` does, so that a seed draws the JAX
+package's samples bit for bit, on the card and on the CPU. The draw
+reads nothing to the host. The `presampled` argument replaces the draws
+(a test hook).
 
 Hypothesis parallelism (`cfg.hyp_axis`, the JAX package's hyp mesh axis,
 progressivex_tpu/core/engine.py:374-381, :850-854): every row runs H
-replicas of its proposal, each on samples of its own (a generator a
-replica, in place of JAX's fold_in of the axis index), each with its own
-sub-batch search, top-T and LO; the round's winner is the argmax of the
-H replicas' scores (ties to the lowest replica, as jnp.argmax) and the
-samples drawn are their sum. Replicas on the fit's device run as extra
+replicas of its proposal, each on samples of its own (replica h draws
+from fold_in(key, h), the JAX package's fold_in of the axis index), each
+with its own sub-batch search, top-T and LO; the round's winner is the
+argmax of the H replicas' scores (ties to the lowest replica, as
+jnp.argmax) and the samples drawn are their sum. Replicas on the fit's device run as extra
 rows of one proposal; replicas on another device (`hyp_devices`) get
 copies of the round's inputs there and send their winners back. The rest
 of the round runs once a row: in the JAX package every replica runs it on
@@ -86,6 +90,7 @@ from progressivex_tpu_torch.core.config import (EngineConfig, RuntimeParams, per
 from progressivex_tpu_torch.core.pearl import (_top_k, merge_instances, pearl_run,
                                                split_instances)
 from progressivex_tpu_torch.models.base import ModelFamily
+from progressivex_tpu_torch.ops import prng
 from progressivex_tpu_torch.ops.knn import grid_graph, knn_graph
 from progressivex_tpu_torch.ops.linalg import gram, row_sum
 from progressivex_tpu_torch.ops.labeling import (
@@ -638,25 +643,49 @@ def prepare(cfg, params, data, point_mask, point_weights, graph_data=None) -> Pr
     return Prepared(data, point_mask, point_weights, rank, samp_idx, samp_mask, adj)
 
 
-def draw_samples(family, cfg, generators, presampled, n_valid_host, prep: Prepared):
-    """The samples of a fit, as `fit_rows` documents them: `presampled`
-    as given, or drawn on the host from `generators` over the prepared
-    neighborhoods (read to the host once)."""
-    if presampled is not None:
-        return presampled
-    n_rows = prep.data.shape[0]
-    if generators is None:
-        raise ValueError("fit needs a torch.Generator or presampled samples")
-    if len(generators) != n_rows:
-        raise ValueError(f"{len(generators)} generators for {n_rows} rows")
-    if cfg.hyp_axis is not None:
-        n_hyp = {len(g) for g in generators}
-        if len(n_hyp) != 1:
-            raise ValueError(f"hyp_axis needs the same number of generators a "
-                             f"row, have {sorted(n_hyp)}")
+def draw(family, cfg, n_valid, keys, prep: Prepared):
+    """The samples of every row, drawn on the device of `keys` from the
+    prepared neighborhoods as the JAX package's `_fit_prepared` draws them
+    (progressivex_tpu/core/engine.py:836-885): keys [R, 2] (or [R, H, 2]
+    under cfg.hyp_axis, replica h folding in h first), n_valid [R].
+    Returns the `presampled` tuple of `fit_rows`. Reads nothing to the
+    host."""
     with record_function("progx_sampling"):
-        return _draw(generators, cfg, family, n_valid_host, prep.samp_idx,
-                     prep.samp_mask, max(int(cfg.n_subbatches), 1))
+        if cfg.hyp_axis is not None:
+            keys = prng.fold_in(keys, torch.arange(keys.shape[1], device=keys.device))
+        b, m = cfg.n_hypotheses, family.sample_size
+
+        def pool(batch_keys):
+            return sample_minimal(batch_keys, cfg.sampler_id, b, m, n_valid,
+                                  prep.samp_idx, prep.samp_mask)
+
+        idx_all, ok_all = pool(prng.split(keys, cfg.max_rounds))
+        n_sub = max(int(cfg.n_subbatches), 1)
+        if n_sub > 1:
+            idx_ext, ok_ext = pool(prng.split(prng.fold_in(keys, 0x5B), n_sub - 1))
+        else:
+            lead = (*keys.shape[:-1], 0, b)
+            idx_ext = torch.zeros(*lead, m, dtype=torch.int64, device=keys.device)
+            ok_ext = torch.zeros(lead, dtype=torch.bool, device=keys.device)
+    return idx_all, ok_all, idx_ext, ok_ext
+
+
+def _row_keys(cfg, keys, presampled, n_rows: int, dev):
+    """`fit_rows`' keys as an int64 tensor on `dev`, checked against the
+    rows (None with `presampled`)."""
+    if presampled is not None:
+        if presampled[0].ndim != (4 if cfg.hyp_axis is None else 5):
+            raise ValueError(f"samples of shape {tuple(presampled[0].shape)} for "
+                             f"hyp_axis {cfg.hyp_axis!r}")
+        return None
+    if keys is None:
+        raise ValueError("fit needs keys or presampled samples")
+    keys = torch.as_tensor(keys).to(device=dev, dtype=torch.int64)
+    ndim = 2 if cfg.hyp_axis is None else 3
+    if keys.ndim != ndim or keys.shape[0] != n_rows or keys.shape[-1] != 2:
+        raise ValueError(f"keys of shape {tuple(keys.shape)} for {n_rows} rows and "
+                         f"hyp_axis {cfg.hyp_axis!r}")
+    return keys
 
 
 def start(family, cfg, data, rank, samples):
@@ -705,7 +734,7 @@ def unrolled(cfg: EngineConfig) -> bool:
 
 
 def fit_rows(family: ModelFamily, cfg: EngineConfig, params: RuntimeParams, data,
-             point_mask, point_weights, generators=None, presampled=None,
+             point_mask, point_weights, keys=None, presampled=None,
              graph_data=None, hyp_devices=None, cache="rows") -> FitResult:
     """R independent fits on the device of `data`: data [R, N, d], point
     mask and weights [R, N], `params.threshold` and `params.n_valid`
@@ -713,9 +742,8 @@ def fit_rows(family: ModelFamily, cfg: EngineConfig, params: RuntimeParams, data
     coordinates of the principal-axis sort and the kNN graph in place of
     `data` (the 6D-pose front ends build the graph on pixels and world
     points, progressivex_tpu/core/engine.py:516-551). `cfg.n_restarts` is
-    not read: restarts are rows. Samples come from `generators`, R CPU torch.Generators (one
-    object may serve several rows: each row draws all of its rounds, then
-    its extension sub-batches, in row order), or from `presampled =
+    not read: restarts are rows. Samples are drawn from `keys` [R, 2], a
+    JAX key a row (ops/prng.py; `draw`), or given as `presampled =
     (idx_all [R, rounds, B, m], ok_all [R, rounds, B], idx_ext
     [R, S-1, B, m], ok_ext [R, S-1, B])` as the sampler returns them:
     PROSAC's in the caller's point order, every other sampler's in the
@@ -723,12 +751,13 @@ def fit_rows(family: ModelFamily, cfg: EngineConfig, params: RuntimeParams, data
     labels in the caller's point order.
 
     With `cfg.hyp_axis` set, each row runs H replicas of its proposal:
-    `generators` holds H generators a row (replica h draws its rounds,
-    then its extension sub-batches, from the h-th, replica after replica),
-    `presampled` a replica axis after the row axis (idx_all [R, H, rounds,
-    B, m], ok_all [R, H, rounds, B], idx_ext [R, H, S-1, B, m], ok_ext
-    [R, H, S-1, B]), and `hyp_devices` the device of each replica (the
-    device of `data` for all if None).
+    `keys` is [R, H, 2], the key each replica receives (replica h draws
+    from fold_in(keys[r, h], h), as a JAX replica folds in its axis
+    index; the JAX package hands every replica the row's key),
+    `presampled` has a replica axis after the row axis (idx_all [R, H,
+    rounds, B, m], ok_all [R, H, rounds, B], idx_ext [R, H, S-1, B, m],
+    ok_ext [R, H, S-1, B]), and `hyp_devices` is the device of each
+    replica (the device of `data` for all if None).
 
     On a CUDA device the fit runs as CUDA graphs (core/graphs.py, the
     counterpart of the JAX package's compiled fit), cached by `cache`
@@ -740,18 +769,14 @@ def fit_rows(family: ModelFamily, cfg: EngineConfig, params: RuntimeParams, data
     _check_slice(cfg)
     n_rows = data.shape[0]
     dev = data.device
-    n_valid_host = np.broadcast_to(np.asarray(
-        params.n_valid.cpu() if isinstance(params.n_valid, torch.Tensor)
-        else params.n_valid), (n_rows,))
     params = rows_params(params, n_rows, dev)
-    if presampled is not None and presampled[0].ndim != (4 if cfg.hyp_axis is None else 5):
-        raise ValueError(f"samples of shape {tuple(presampled[0].shape)} for hyp_axis "
-                         f"{cfg.hyp_axis!r}")
+    keys = _row_keys(cfg, keys, presampled, n_rows, dev)
     if graphs.applies(dev, hyp_devices):
         return graphs.fit_rows(family, cfg, params, data, point_mask, point_weights,
-                               generators, presampled, graph_data, n_valid_host, cache)
+                               keys, presampled, graph_data, cache)
     prep = prepare(cfg, params, data, point_mask, point_weights, graph_data)
-    samples = draw_samples(family, cfg, generators, presampled, n_valid_host, prep)
+    samples = (presampled if presampled is not None
+               else draw(family, cfg, params.n_valid, keys, prep))
     samples, carry = start(family, cfg, prep.data, prep.rank, samples)
     moves = (family, cfg, params, prep.data, prep.point_mask, prep.point_weights,
              prep.adj)
@@ -828,21 +853,22 @@ def row_result(rows: FitResult, r: int) -> FitResult:
 
 
 def fit(family: ModelFamily, cfg: EngineConfig, params: RuntimeParams, data,
-        point_mask, point_weights, generator: torch.Generator | None = None,
-        presampled=None, graph_data=None) -> FitResult:
+        point_mask, point_weights, key=None, presampled=None,
+        graph_data=None) -> FitResult:
     """The full multi-model fit of one padded scene (data [N, d], point
     mask and weights [N], graph coordinates `graph_data` [N, d'] if not
     those of `data`), on the device of `data`: its `cfg.n_restarts`
     restarts run as the rows of one `fit_rows` call, and `select_restart`
-    picks the winner. Samples come from `generator` (a CPU
-    torch.Generator): restart 0 draws all of its rounds first, then
-    restart 1, and so on, so that a fit on the card and one on the CPU
-    with the same seed see the same samples. `presampled = (idx_all
+    picks the winner. Samples are drawn from `key`, a [2] JAX key
+    (ops/prng.key): split into the restarts' keys when n_restarts > 1,
+    the key itself for one restart, as the JAX package's `fit` splits it
+    (progressivex_tpu/core/engine.py:579-591). `presampled = (idx_all
     [rounds, B, m], ok_all [rounds, B], idx_ext [S-1, B, m], ok_ext
     [S-1, B])` replaces the draws of one run (a sequence of `n_restarts`
     such tuples when `n_restarts > 1`), as the sampler returns them."""
     _check_slice(cfg)
     n_restarts = cfg.n_restarts
+    keys = None
     if presampled is not None:
         runs = [presampled] if n_restarts == 1 else list(presampled)
         if len(runs) != n_restarts:
@@ -850,15 +876,18 @@ def fit(family: ModelFamily, cfg: EngineConfig, params: RuntimeParams, data,
                              f"{n_restarts} restarts")
         presampled = tuple(torch.stack([torch.as_tensor(run[i]) for run in runs])
                            for i in range(4))
-    elif generator is None:
-        raise ValueError("fit needs a torch.Generator or presampled samples")
+    elif key is None:
+        raise ValueError("fit needs a key or presampled samples")
+    else:
+        key = torch.as_tensor(key).to(device=data.device, dtype=torch.int64)
+        keys = prng.split(key, n_restarts) if n_restarts > 1 else key[None]
 
     def rows(t):
         return t[None].repeat(n_restarts, *([1] * t.ndim))
 
     res = fit_rows(family, dataclasses.replace(cfg, n_restarts=1), params,
                    rows(data), rows(point_mask), rows(point_weights),
-                   generators=[generator] * n_restarts, presampled=presampled,
+                   keys=keys, presampled=presampled,
                    graph_data=None if graph_data is None else rows(graph_data),
                    cache="fit")
     energies = res.energy.tolist()  # one read for every restart
@@ -891,36 +920,6 @@ def select_restart(energy, rule: str, n_models=None) -> int:
     raise ValueError(f"unknown restart_rule {rule!r} "
                      "(expected 'energy' or 'energy+<L>k'; 'agreement' "
                      "was retired — see docs/DESIGN_NOTES.md)")
-
-
-def _draw(generators, cfg, family, n_valid, samp_idx, samp_mask, n_sub):
-    """Every row's samples, drawn on the host from its generator: the
-    row's max_rounds proposal batches, then its n_sub - 1 extension
-    batches, row after row; with `cfg.hyp_axis`, replica after replica
-    within a row, each from its own of the row's generators. Returns the
-    `presampled` tuple (with the replica axis after the row axis)."""
-    samp_idx, samp_mask = samp_idx.cpu(), samp_mask.cpu()  # one copy each
-
-    def batches(gen, r, count):
-        draws = [sample_minimal(gen, cfg.sampler_id, cfg.n_hypotheses,
-                                family.sample_size, int(n_valid[r]), samp_idx[r],
-                                samp_mask[r]) for _ in range(count)]
-        if not draws:
-            return (torch.zeros(0, cfg.n_hypotheses, family.sample_size, dtype=torch.long),
-                    torch.zeros(0, cfg.n_hypotheses, dtype=torch.bool))
-        return torch.stack([d[0] for d in draws]), torch.stack([d[1] for d in draws])
-
-    def run(gen, r):
-        return (*batches(gen, r, cfg.max_rounds), *batches(gen, r, n_sub - 1))
-
-    def stack(runs, i):
-        return torch.stack([one[i] for one in runs])
-
-    if cfg.hyp_axis is None:
-        runs = [run(g, r) for r, g in enumerate(generators)]
-        return tuple(stack(runs, i) for i in range(4))
-    runs = [[run(g, r) for g in gens] for r, gens in enumerate(generators)]
-    return tuple(torch.stack([stack(reps, i) for reps in runs]) for i in range(4))
 
 
 def _final_polish(family, cfg, params, data, pmask, pweights, descs, active, labels):

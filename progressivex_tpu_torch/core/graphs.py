@@ -8,7 +8,10 @@ A fit on a CUDA device (`engine.fit_rows`) runs its stages as graphs,
 each captured at the first call of its key and replayed after:
 
   prepare   the principal-axis sort, the kNN or grid graph, the adjacency;
-  start     the samples as the rounds read them, and the first carry;
+  start     the draw of every round's samples from the rows' keys on the
+            device (`engine.draw`, the JAX package's threefry keys and
+            samplers), the samples as the rounds read them, and the
+            first carry;
   propose   a round's first half, up to the PEARL gate (`round_propose`);
   update0   a round's second half, no row running PEARL (`round_update`);
   update1   the same with PEARL on the rows its gate selects;
@@ -16,9 +19,8 @@ each captured at the first call of its key and replayed after:
   rounds    with cfg.unroll_rounds (`engine.unrolled`): all max_rounds
             rounds, PEARL under its gate, and `finish`, one graph.
 
-Between them the host reads the sampler's neighborhoods once (the samples
-are drawn on CPU generators, as in the eager fit), then at most two values
-a round: `any_pearl` between the halves, so that a round in which no row
+Between them the host reads nothing before the rounds, then at most two
+values a round: `any_pearl` between the halves, so that a round in which no row
 runs PEARL skips its work, and `all_done` at the round's end (the JAX
 while_loop's condition). A live-progress fit reads the round's statistics
 there too.
@@ -28,8 +30,8 @@ types of the data, weights and graph coordinates, the samples' shapes,
 device): the JAX key's (family, config, pad level, rows, has_graph) and
 the scalars that the JAX program takes as arguments but a graph holds as
 constants. The data, mask, weights, graph coordinates, per-row threshold
-and n_valid and the samples are copied into the key's static buffers at
-each call. Two bounded LRU caches hold the keys, of the JAX package's
+and n_valid and the rows' keys (or the samples given in their place) are
+copied into the key's static buffers at each call. Two bounded LRU caches hold the keys, of the JAX package's
 sizes: 64 for `engine.fit` (one scene, restarts as rows) and 32 for every
 other caller of `fit_rows`.
 
@@ -216,8 +218,8 @@ class _Graphs:
         buf.copy_(src)
         return buf
 
-    def fit(self, family, cfg, params, data, point_mask, point_weights, generators,
-            presampled, graph_data, n_valid_host):
+    def fit(self, family, cfg, params, data, point_mask, point_weights, keys,
+            presampled, graph_data):
         """`engine.fit_rows`' stages as this key's graphs, on this call's
         inputs; returns the FitResult's tensors cloned out of the
         buffers."""
@@ -227,11 +229,21 @@ class _Graphs:
             ("data", data), ("mask", point_mask), ("weights", point_weights),
             ("graph", graph_data)))
         prep = self.stage("prepare", lambda: engine.prepare(cfg, p, data, mask, weights, gd))
-        drawn = engine.draw_samples(family, cfg, generators, presampled, n_valid_host, prep)
-        raw = tuple(self._static(f"samples{i}", torch.as_tensor(t), dtype)
-                    for i, (t, dtype) in enumerate(zip(drawn, (torch.int64, torch.bool) * 2)))
+        if presampled is not None:
+            raw = tuple(self._static(f"samples{i}", torch.as_tensor(t), dtype)
+                        for i, (t, dtype) in enumerate(zip(presampled,
+                                                           (torch.int64, torch.bool) * 2)))
+
+            def sampled():
+                return raw
+        else:
+            k = self._static("keys", keys)
+
+            def sampled():
+                return engine.draw(family, cfg, p.n_valid, k, prep)
+
         samples, carry = self.stage(
-            "start", lambda: engine.start(family, cfg, prep.data, prep.rank, raw))
+            "start", lambda: engine.start(family, cfg, prep.data, prep.rank, sampled()))
         moves = (family, cfg, p, prep.data, prep.point_mask, prep.point_weights, prep.adj)
 
         def propose():
@@ -266,14 +278,13 @@ class _Graphs:
             "finish", lambda: engine.finish(*moves, prep.rank, carry)))
 
 
-def _key(family, cfg, params, data, point_weights, graph_data, generators, presampled):
+def _key(family, cfg, params, data, point_weights, graph_data, keys, presampled):
     scalars = tuple(np.asarray(v).item() for f, v in params._asdict().items()
                     if f not in ("threshold", "n_valid"))
     if presampled is not None:
         samples = tuple(tuple(t.shape) for t in presampled)
     else:
-        samples = ("drawn", None if cfg.hyp_axis is None or not generators
-                   else len(generators[0]))
+        samples = ("keys", tuple(keys.shape))
     return (family.name, cfg, scalars, tuple(data.shape), data.dtype,
             point_weights.dtype,
             None if graph_data is None else (tuple(graph_data.shape), graph_data.dtype),
@@ -293,15 +304,15 @@ def _entry(cache: str, key, dev: torch.device) -> _Graphs:
         return entry
 
 
-def fit_rows(family, cfg, params, data, point_mask, point_weights, generators,
-             presampled, graph_data, n_valid_host, cache="rows") -> engine.FitResult:
+def fit_rows(family, cfg, params, data, point_mask, point_weights, keys, presampled,
+             graph_data, cache="rows") -> engine.FitResult:
     """`engine.fit_rows` on a CUDA device as graphs (`params` with its
-    per-row tensors, n_valid_host the per-row point counts on the host);
-    the FitResult's tensors are the graphs' results, cloned."""
+    per-row tensors, `keys` the rows' keys on the device, or None with
+    `presampled`); the FitResult's tensors are the graphs' results,
+    cloned."""
     dev = data.device
-    key = _key(family, cfg, params, data, point_weights, graph_data, generators,
-               presampled)
+    key = _key(family, cfg, params, data, point_weights, graph_data, keys, presampled)
     entry = _entry(cache, key, dev)
     with device_guard(dev), entry.lock:
         return entry.fit(family, cfg, params, data, point_mask, point_weights,
-                         generators, presampled, graph_data, n_valid_host)
+                         keys, presampled, graph_data)

@@ -17,7 +17,10 @@ most min(768, 384 * 4095 // flat hypotheses), and at most 160 rows, or
 `PROGX_F_ROWS`, where restarts are rows); a bucket with more scenes than
 lanes runs in chunks. Each chunk is one `api_batch._run_batched` call on
 the card, F's restarts rows of it. The split move runs in buckets of 512
-points and up (`split_pass_min_npad`).
+points and up (`split_pass_min_npad`). A chunk's rows draw from the JAX
+package's keys, split(PRNGKey(seed), rows) (progressivex_tpu/eval/
+adelaide.py:402,420,465-466): the untimed call at `seed`, timing run i at
+seed + i + 1.
 
 `PROGX_BENCH_DEVICES=n` (n > 1) shards every batch's rows over the
 scenes axis of `make_mesh(n, 1)`, n cards, as in the JAX package
@@ -43,6 +46,7 @@ from progressivex_tpu_torch.io.data import (ADELAIDE_F_SCENES, ADELAIDE_H_SCENES
 from progressivex_tpu_torch.io.metrics import misclassification
 from progressivex_tpu_torch.kernels.scoring import LAUNCHES
 from progressivex_tpu_torch.models import get_family
+from progressivex_tpu_torch.ops import prng
 from progressivex_tpu_torch.parallel.sharding import make_mesh
 
 # The notebook protocols (adelaideH.ipynb / adelaideF.ipynb cell 3) with the
@@ -246,16 +250,18 @@ def _prepare(problem, root, lane_target, allowed_buckets, mesh) -> _Prepared:
 
 def _run(prep: _Prepared, batch: LaneBatch, seed: int, dev, mesh):
     """One batch on `dev`, or over `mesh`'s scenes axis: the labels of
-    every lane. A replicated lane is another draw of its scene (its seed
-    comes from its lane position), as every row of the JAX package's
-    batch has a key of its own."""
+    every lane. Row i draws from split(PRNGKey(seed), rows)[i], as in the
+    JAX package's batch, so a replicated lane is another draw of its
+    scene."""
     kw = scene_kwargs(batch.n_pad, prep.problem)
     kw.pop("split_pass", None)
     thr = kw.pop("threshold")
+    keys = prng.split(prng.key(seed, dev if mesh is None else mesh.devices[0, 0]),
+                      batch.rows)
     out = api_batch._run_batched(
         _PROBLEMS[prep.problem][3], [prep.scenes[i][0] for i in batch.lane_ids], None,
-        thresholds=thr, random_seed=seed, device=dev, split_pass=batch.split_pass,
-        pad_to=batch.n_pad, lanes=batch.lanes, mesh=mesh, **kw)
+        thresholds=thr, device=dev, split_pass=batch.split_pass,
+        pad_to=batch.n_pad, lanes=batch.lanes, mesh=mesh, keys=keys, **kw)
     return [labels for _, labels in out]
 
 

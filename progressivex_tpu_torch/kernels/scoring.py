@@ -50,6 +50,17 @@ from progressivex_tpu_torch._device import device_guard
 LAUNCHES = {"score_homography": 0, "score_fundamental": 0}
 ROWS = {"score_homography": 0, "score_fundamental": 0}
 _COUNT_LOCK = threading.Lock()
+# name -> (launches, rows) of every kernel counted here: the scoring
+# kernels', and those another module registers (kernels/threefry.py)
+_TABLES = {name: (LAUNCHES, ROWS) for name in LAUNCHES}
+
+
+def register(launches: dict, rows: dict):
+    """Count the kernels named in `launches` (and their rows in `rows`)
+    with the scoring kernels' machinery (`recording`, `add_counts`), in
+    those dicts."""
+    for name in launches:
+        _TABLES[name] = (launches, rows)
 
 
 _RECORDING = threading.local()
@@ -69,8 +80,9 @@ def add_counts(tally):
     """Count the launches of `tally`, [(name, rows), ...]."""
     with _COUNT_LOCK:
         for name, rows in tally:
-            LAUNCHES[name] += 1
-            ROWS[name] += rows
+            launches, rows_of = _TABLES[name]
+            launches[name] += 1
+            rows_of[name] += rows
 
 
 @contextlib.contextmanager

@@ -35,6 +35,7 @@ from progressivex_tpu_torch.core import engine
 from progressivex_tpu_torch.core.config import EngineConfig, RuntimeParams
 from progressivex_tpu_torch.models import get_family
 from progressivex_tpu_torch.models.base import ModelFamily
+from progressivex_tpu_torch.ops import prng
 
 
 class Mesh:
@@ -87,11 +88,10 @@ def _shard_params(params: RuntimeParams, rows: slice) -> RuntimeParams:
     return params._replace(threshold=cut(params.threshold), n_valid=cut(params.n_valid))
 
 
-def _fit_shard(family, cfg, params, dev, tensors, generators, hyp_devices):
-    data, mask, weights, graph = (None if t is None else t.to(dev) for t in tensors)
-    return engine.fit_rows(family, cfg, params, data, mask, weights,
-                           generators=generators, graph_data=graph,
-                           hyp_devices=hyp_devices)
+def _fit_shard(family, cfg, params, dev, tensors, hyp_devices):
+    data, mask, weights, graph, keys = (None if t is None else t.to(dev) for t in tensors)
+    return engine.fit_rows(family, cfg, params, data, mask, weights, keys=keys,
+                           graph_data=graph, hyp_devices=hyp_devices)
 
 
 def _take_rows(res: engine.FitResult, idx) -> engine.FitResult:
@@ -116,15 +116,15 @@ def _concat(results, dev) -> engine.FitResult:
 
 
 def fit_rows_sharded(family: ModelFamily, cfg: EngineConfig, params: RuntimeParams,
-                     data, point_mask, point_weights, generators, mesh: Mesh,
+                     data, point_mask, point_weights, keys, mesh: Mesh,
                      graph_data=None, out_device=None) -> engine.FitResult:
     """`engine.fit_rows` with its rows sharded contiguously over the
     mesh's scenes axis: shard s (R / n_scenes rows, R must divide) runs on
     mesh.devices[s, 0], in a host thread of its own when there are
-    several. With `cfg.hyp_axis` set, `generators` holds H =
-    mesh.shape["hyp"] generators a row and the shard's replicas run on
-    mesh.devices[s, :]. The shards' results are gathered on `out_device`
-    (mesh.devices[0, 0] if None)."""
+    several, on its rows' `keys` ([R, 2]). With `cfg.hyp_axis` set, `keys`
+    is [R, H, 2] with H = mesh.shape["hyp"] (`engine.fit_rows`) and the
+    shard's replicas run on mesh.devices[s, :]. The shards' results are
+    gathered on `out_device` (mesh.devices[0, 0] if None)."""
     n_shards = mesh.shape["scenes"]
     rows = data.shape[0]
     if rows % n_shards:
@@ -135,33 +135,24 @@ def fit_rows_sharded(family: ModelFamily, cfg: EngineConfig, params: RuntimePara
         cut = slice(s * per, (s + 1) * per)
         dev = mesh.devices[s, 0]
         tensors = tuple(None if t is None else t[cut]
-                        for t in (data, point_mask, point_weights, graph_data))
+                        for t in (data, point_mask, point_weights, graph_data, keys))
         hyp_devices = list(mesh.devices[s]) if cfg.hyp_axis is not None else None
         jobs.append((dev, (family, cfg, _shard_params(params, cut), dev, tensors,
-                           generators[cut], hyp_devices)))
+                           hyp_devices)))
     results = run_per_device(_fit_shard, jobs)
     return _concat(results, mesh.devices[0, 0] if out_device is None else out_device)
 
 
-def replica_seed(seed: int, restart: int, replica: int) -> int:
-    """The seed of restart `restart`, replica `replica` of a scene whose
-    seed is `seed` in `fit_batch`."""
-    return int(np.random.SeedSequence(
-        [int(seed), int(restart), int(replica)]).generate_state(1)[0])
-
-
 def fit_batch(family: ModelFamily | str, cfg: EngineConfig, params: RuntimeParams,
-              data, point_mask, point_weights, seeds, mesh: Mesh | None = None
+              data, point_mask, point_weights, keys, mesh: Mesh | None = None
               ) -> engine.FitResult:
     """Fit a batch of scenes (data [S, N, d], point_mask and point_weights
-    [S, N], `params` shared), optionally over a ("scenes", "hyp") mesh.
-
-    `seeds` holds one entry a scene: an int, whose restart r, replica h
-    draws from a CPU generator seeded with `replica_seed(seed, r, h)`, or
-    a torch.Generator, from which the scene's restarts and replicas draw
-    in turn (restart 0's replicas first); with a mesh, no generator may
-    serve two scenes, since the scenes' shards draw in threads of their
-    own.
+    [S, N], `params` shared, `keys` [S, 2] the scenes' JAX keys,
+    ops/prng.py), optionally over a ("scenes", "hyp") mesh, as the JAX
+    package's fit_batch (progressivex_tpu/parallel/sharding.py:43-92):
+    each scene's key is split into its cfg.n_restarts restarts' keys (the
+    key itself for one restart), as `engine.fit` splits it, and under a
+    mesh every replica h of a restart draws from fold_in(key, h).
 
     Without a mesh this is `fit_rows` on the device of `data`, every
     scene's cfg.n_restarts restarts as rows — the JAX package's
@@ -175,21 +166,12 @@ def fit_batch(family: ModelFamily | str, cfg: EngineConfig, params: RuntimeParam
     if isinstance(family, str):
         family = get_family(family)
     n_scenes = data.shape[0]
-    if len(seeds) != n_scenes:
-        raise ValueError(f"{len(seeds)} seeds for {n_scenes} scenes")
+    keys = torch.as_tensor(keys).to(device=data.device, dtype=torch.int64)
+    if keys.shape != (n_scenes, 2):
+        raise ValueError(f"keys of shape {tuple(keys.shape)} for {n_scenes} scenes")
     n_restarts = max(int(cfg.n_restarts), 1)
-    n_hyp = 1 if mesh is None else mesh.shape["hyp"]
-    shared = [g for g in seeds if isinstance(g, torch.Generator)]
-    if mesh is not None and len({id(g) for g in shared}) < len(shared):
-        raise ValueError("with a mesh, every scene needs a generator of its own")
-
-    def replicas(seed, r):
-        if isinstance(seed, torch.Generator):
-            return [seed] * n_hyp
-        return [torch.Generator().manual_seed(replica_seed(seed, r, h))
-                for h in range(n_hyp)]
-
-    gens = [replicas(seed, r) for seed in seeds for r in range(n_restarts)]
+    row_keys = (prng.split(keys, n_restarts) if n_restarts > 1
+                else keys[:, None]).reshape(-1, 2)
 
     def rows(t):
         return t.repeat_interleave(n_restarts, dim=0)
@@ -197,14 +179,15 @@ def fit_batch(family: ModelFamily | str, cfg: EngineConfig, params: RuntimeParam
     sub_cfg = dataclasses.replace(cfg, n_restarts=1)
     if mesh is None:
         res = engine.fit_rows(family, sub_cfg, params, rows(data), rows(point_mask),
-                              rows(point_weights), generators=[g[0] for g in gens])
+                              rows(point_weights), keys=row_keys)
     else:
         if n_scenes % mesh.shape["scenes"]:
             raise ValueError(f"{n_scenes} scenes do not divide over a scenes axis "
                              f"of {mesh.shape['scenes']}")
         res = fit_rows_sharded(family, dataclasses.replace(sub_cfg, hyp_axis="hyp"),
-                               params, rows(data), rows(point_mask),
-                               rows(point_weights), gens, mesh, out_device=data.device)
+                               params, rows(data), rows(point_mask), rows(point_weights),
+                               row_keys[:, None].expand(-1, mesh.shape["hyp"], -1),
+                               mesh, out_device=data.device)
     energy = res.energy.reshape(n_scenes, n_restarts).tolist()
     n_models = res.n_models.reshape(n_scenes, n_restarts).tolist()
     best = [engine.select_restart(energy[s], cfg.restart_rule, n_models[s])

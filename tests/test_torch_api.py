@@ -3,9 +3,9 @@ JAX package, device resolution, `convert`, import isolation from JAX,
 and the size of the tracked tree.
 
 Tolerance of the end-to-end check: ME within 0.03 of the JAX package's
-on the same scene and seed. The port draws its own samples from a
-torch.Generator, so its run is another random run of the same
-algorithm, not a replay.
+on the same scene and seed. The port draws the JAX package's samples
+for the seed (ops/prng.py), so the two runs part only where float32
+rounding does.
 """
 
 import ast

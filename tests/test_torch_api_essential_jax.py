@@ -3,18 +3,14 @@ gauntlet scene at seed 1 (tests/test_gauntlet.py:160-191), at the
 gauntlet's keywords with its three restarts, through both front ends on
 the CPU.
 
-The port draws its samples from its own torch generator, so a run of each
-package is one draw of the algorithm, and on this scene the draw decides
-the mode a run lands in: over random seeds 0-9 the JAX package's ME spans
-0.010-0.045 and the port's 0.0125-0.065 with one K = 1 run, and at seed 1
-the port's own draw gives 0.065 against the JAX package's 0.0225
-(`tools/seed_spread.py`, PERF.md). So the port's front end runs on the
-JAX package's own samples of that call (its three restarts' keys split as
-progressivex_tpu/core/engine.py:590-591 and :853-861 split them, handed
-to the port's engine in place of its draw), and must give the same number
-of motions and an ME within 0.03 of the JAX package's. The port's own
-draws are held to the JAX package's gates by tests/test_torch_api_essential.py
-and, on the card, by chip_smoke.py.
+On this scene the draw decides the mode a run lands in (over random seeds
+0-9 the JAX package's ME spans 0.010-0.045; `tools/seed_spread.py`,
+PERF.md), so the two packages are compared on the same samples. The port
+draws the JAX package's samples for the same random_seed (its three
+restarts' keys split as progressivex_tpu/core/engine.py:590-591 and
+:853-861 split them, ops/prng.py): the test holds the port's draw to
+the JAX package's, element for element, then its fit must give the same
+number of motions and an ME within 0.03 of the JAX package's.
 
 This file holds the one compile of the JAX essential front end that the
 port's tests make (several minutes on one core), kept apart so that
@@ -73,10 +69,18 @@ def test_gauntlet_two_motions_seed_1_matches_jax(monkeypatch):
                                                       random_seed=SEED)
     jk, jme = jE.shape[0] // 3, misclassification(jlab, gt)
 
-    draws = _jax_draws(len(corrs))
-    monkeypatch.setattr(engine, "_draw", lambda *args: draws)
+    drawn, draw = [], engine.draw
+
+    def recording(*args):
+        drawn.append(draw(*args))
+        return drawn[-1]
+
+    monkeypatch.setattr(engine, "draw", recording)
     E, lab = progressivex_tpu_torch.findEssentialMatrices(
         corrs, K, K, **extras.ESSENTIAL_KW, random_seed=SEED, device="cpu")
+    assert len(drawn) == 1
+    for got, want in zip(drawn[0], _jax_draws(len(corrs))):
+        assert torch.equal(got, want)
     k, me = E.shape[0] // 3, misclassification(lab, gt)
     assert k == jk, f"on the JAX draw the port found {k} motions, the JAX package {jk}"
     assert abs(me - jme) <= ME_SLACK, f"ME {me:.4f} against the JAX package's {jme:.4f}"

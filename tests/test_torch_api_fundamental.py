@@ -2,9 +2,9 @@
 and its protocol, input checks and device default.
 
 Tolerance of the end-to-end check: ME within 0.03 of the JAX package's on
-the same scene and seed. The port draws its own samples from a
-torch.Generator, so its run is another random run of the same algorithm,
-not a replay. This file is apart from tests/test_torch_fundamental.py so
+the same scene and seed. The port draws the JAX package's samples for
+the seed (ops/prng.py), so the two runs part only where float32
+rounding does. This file is apart from tests/test_torch_fundamental.py so
 that the two JAX F compiles run on different test workers.
 """
 

@@ -2,8 +2,8 @@
 the CPU, on the synthetic scenes of eval/extras at the JAX package's bench
 keywords, and the new front ends' device rule.
 
-The port draws its samples from torch generators, so a seed is another
-random run of the same algorithm, not the JAX package's run: the
+The port draws the JAX package's samples for a seed (ops/prng.py), and
+the two runs part only where float32 rounding does: the
 misclassification error must be within 0.03 of the JAX package's at the
 same seed (the limit of `chip_smoke.py`), the model count within one.
 """

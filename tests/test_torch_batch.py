@@ -180,10 +180,9 @@ def test_batched_front_end_is_batch_invariant():
     data = torch.zeros(4, n_pad, 4)
     data[:, :len(sc)] = torch.as_tensor(sc, dtype=torch.float32)
     mask = torch.arange(n_pad).expand(4, n_pad) < len(sc)
-    seed = api_batch.row_seed(KW["random_seed"], n_pad, 0, 0)
+    keys = api_batch.row_keys(KW["random_seed"], n_pad, [0] * 4, [0] * 4)
     rows = engine.fit_rows(get_family("homography"), cfg, params, data, mask,
-                           mask.float(), generators=[torch.Generator().manual_seed(seed)
-                                                     for _ in range(4)])
+                           mask.float(), keys=keys)
     for r in range(1, 4):
         assert torch.equal(rows.labels[r], rows.labels[0])
         assert torch.equal(rows.descs[r], rows.descs[0])
@@ -303,4 +302,5 @@ def test_batched_input_validation():
         convert.presampled_rows(np.zeros((2, 8, 4)), np.zeros((2, 8), bool),
                                 np.zeros((0, 8, 4)), np.zeros((0, 8), bool), device="cpu")
     assert api_batch._next_pow2(3) == 4 and api_batch._next_pow2(1) == 1
-    assert api_batch.row_seed(0, 256, 1, 0) != api_batch.row_seed(0, 256, 0, 1)
+    keys = api_batch.row_keys(0, 256, [1, 0], [0, 1])
+    assert not torch.equal(keys[0], keys[1])

@@ -34,7 +34,7 @@ from progressivex_tpu_torch.core import engine
 from progressivex_tpu_torch.core.config import EngineConfig, make_params
 from progressivex_tpu_torch.kernels import scoring as kscoring
 from progressivex_tpu_torch.models import get_family
-from progressivex_tpu_torch.ops import knn, sampling
+from progressivex_tpu_torch.ops import knn, prng, sampling
 
 
 def _rotation(rv):
@@ -83,14 +83,10 @@ def test_restarts_as_rows_match_sequential_restarts():
     td, tm, tw = torch.from_numpy(data), torch.ones(n, dtype=torch.bool), torch.ones(n)
     samp_idx, samp_mask = knn.knn_graph(td, tm, params.neighborhood_radius,
                                         max(cfg.knn_k, cfg.sampler_k))
-    gen = torch.Generator().manual_seed(3)
+    keys = prng.split(prng.split(prng.key(3), cfg.n_restarts), cfg.max_rounds)
+    idx, ok = sampling.sample_minimal(keys, cfg.sampler_id, 64, 7, n, samp_idx, samp_mask)
     empty = (torch.zeros(0, 64, 7, dtype=torch.long), torch.zeros(0, 64, dtype=torch.bool))
-    runs = []
-    for _ in range(cfg.n_restarts):
-        draws = [sampling.sample_minimal(gen, cfg.sampler_id, 64, 7, n, samp_idx,
-                                         samp_mask) for _ in range(cfg.max_rounds)]
-        runs.append((torch.stack([d[0] for d in draws]),
-                     torch.stack([d[1] for d in draws]), *empty))
+    runs = [(idx[r], ok[r], *empty) for r in range(cfg.n_restarts)]
     got = engine.fit(fam, cfg, params, td, tm, tw, presampled=runs)
 
     one_cfg = dataclasses.replace(cfg, n_restarts=1)

@@ -149,7 +149,7 @@ def test_slice_matches_jax_with_replayed_samples():
 
 def test_fit_needs_samples():
     n, _, _, cfg, params, data = _entry_setup()
-    with pytest.raises(ValueError, match="Generator or presampled"):
+    with pytest.raises(ValueError, match="key or presampled"):
         engine.fit(get_family("homography"), cfg, params, torch.from_numpy(data),
                    torch.ones(n, dtype=torch.bool), torch.ones(n))
 

@@ -3,7 +3,7 @@
 The vanishing-point demo runs end to end with device="cpu" on the JAX
 demo's scene: three vanishing points, each within 5% of its ground-truth
 position, and the labeling within the JAX package's misclassification on
-the same scene + 0.03 (the port draws its own samples). Every demo is a
+the same scene + 0.03 (the same samples, parted by rounding). Every demo is a
 counterpart of one in examples/ and takes a `device` argument.
 """
 

@@ -40,7 +40,7 @@ from progressivex_tpu_torch.kernels import scoring as kscoring
 from progressivex_tpu_torch.models import fundamental as tf
 from progressivex_tpu_torch.models import get_family
 from progressivex_tpu_torch.ops import linalg as tl
-from progressivex_tpu_torch.ops import sampling
+from progressivex_tpu_torch.ops import prng, sampling
 
 DESC_ATOL = 1e-3
 LABEL_DISAGREEMENT_MAX = 0.01
@@ -301,9 +301,9 @@ def test_score_fundamental_padding_independence_and_no_build(monkeypatch):
 
 
 def test_prosac_prefix_growth():
-    gen = torch.Generator().manual_seed(0)
     n_valid, b, m = 200, 512, 7
-    idx, ok = sampling.prosac_sample(gen, b, m, n_valid)
+    no_table = torch.zeros(1, 1, dtype=torch.int64)  # PROSAC reads none
+    idx, ok = sampling.sample_minimal(prng.key(0), 1, b, m, n_valid, no_table, no_table)
     prefix = np.minimum(m + np.ceil((np.arange(b) + 1.0) / b * (n_valid - m)), n_valid)
     assert np.all(idx.numpy().max(1) < prefix)  # row b draws from its prefix
     assert idx.numpy().min() >= 0 and idx.numpy().max() < n_valid
@@ -311,8 +311,11 @@ def test_prosac_prefix_growth():
     rows = idx[ok].numpy()
     assert all(len(set(r.tolist())) == m for r in rows)
     # the JAX sampler draws from the same prefixes
-    jidx, _ = jsampling.prosac_sample(jax.random.PRNGKey(0), b, m, jnp.int32(n_valid))
+    jidx, jok = jsampling.prosac_sample(jax.random.PRNGKey(0), b, m, jnp.int32(n_valid))
     assert np.all(np.asarray(jidx).max(1) < prefix)
+    # ... and, from the same key, the same samples
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(jok))
 
 
 def test_progressive_napsac_window_and_global_tail():
@@ -320,9 +323,8 @@ def test_progressive_napsac_window_and_global_tail():
     n, k, n_valid, b, m = 200, 48, 180, 512, 7
     knn_idx = np.stack([r.permutation(n)[:k] for _ in range(n)]).astype(np.int32)
     knn_mask = r.random((n, k)) < 0.9
-    gen = torch.Generator().manual_seed(2)
-    idx, ok = sampling.progressive_napsac_sample(gen, b, m, n_valid, _t(knn_idx),
-                                                 _t(knn_mask))
+    idx, ok = sampling.sample_minimal(prng.key(2), 2, b, m, n_valid, _t(knn_idx),
+                                      _t(knn_mask))
     idx, ok = idx.numpy(), ok.numpy()
     n_local = (b * 7) // 8
     frac = np.minimum(np.arange(b) / (n_local - 1), 1.0)
@@ -340,9 +342,13 @@ def test_progressive_napsac_window_and_global_tail():
     tail = idx[n_local:][ok[n_local:]]
     assert tail.max() < n_valid  # the last eighth samples the valid prefix
     assert all(len(set(row.tolist())) == m for row in tail)
-    idx2, _ = sampling.progressive_napsac_sample(
-        torch.Generator().manual_seed(2), b, m, n_valid, _t(knn_idx), _t(knn_mask))
+    idx2, _ = sampling.sample_minimal(prng.key(2), 2, b, m, n_valid, _t(knn_idx),
+                                      _t(knn_mask))
     assert np.array_equal(idx, idx2.numpy())
+    jidx, _ = jsampling.progressive_napsac_sample(
+        jax.random.PRNGKey(2), b, m, jnp.int32(n_valid), jnp.asarray(knn_idx),
+        jnp.asarray(knn_mask))
+    np.testing.assert_array_equal(idx, np.asarray(jidx))
 
 
 # -------------------------------------------------------------- restarts
@@ -377,9 +383,9 @@ def test_prosac_indices_map_through_the_spatial_sort():
                                 neighborhood_radius=50.0, min_inliers=15,
                                 scoring_exponent=1.0, n_valid=n)
     td, tm, tw = _t(data), torch.ones(n, dtype=torch.bool), torch.ones(n)
-    gen = torch.Generator().manual_seed(0)
-    idx, ok = zip(*[sampling.prosac_sample(gen, 64, 7, n) for _ in range(2)])
-    idx, ok = torch.stack(idx), torch.stack(ok)
+    no_table = torch.zeros(1, 1, dtype=torch.int64)  # PROSAC reads none
+    idx, ok = sampling.sample_minimal(prng.split(prng.key(0), 2), 1, 64, 7, n, no_table,
+                                      no_table)
     empty = (torch.zeros(0, 64, 7, dtype=torch.long), torch.zeros(0, 64, dtype=torch.bool))
     fam = get_family("fundamental")
     got = engine.fit(fam, cfg, params, td, tm, tw, presampled=(idx, ok, *empty))
@@ -431,6 +437,11 @@ def test_slice_matches_jax_with_replayed_restart_samples():
             np.zeros((0, jcfg.n_hypotheses), bool), device="cpu"))
     got = engine.fit(get_family("fundamental"), cfg, params, _t(data), _t(mask),
                      _t(weights), presampled=presampled)
+    # the port's own draw from the same key is that replay, bit for bit
+    drawn = engine.fit(get_family("fundamental"), cfg, params, _t(data), _t(mask),
+                       _t(weights), key=convert.key_from_jax(np.asarray(key), device="cpu"))
+    for f in ("descs", "active", "labels", "energy"):
+        assert torch.equal(getattr(drawn, f), getattr(got, f)), f
 
     # The winner: the JAX package returns the winning restart's energy.
     assert len(got.restart_energies) == 2

@@ -9,7 +9,8 @@ times, as the JAX package's tests force eight host devices.
   dataset pass under PROGX_BENCH_DEVICES.
 - A 2-replica proposal with LO off equals one argmax over the pooled 2B
   samples (tests/test_sharding.py:130-184; rtol 1e-6).
-- `fit_batch` over a mesh equals `fit_rows` on the same replica draws,
+- `fit_batch` over a mesh equals `fit_rows` on the same replica keys
+  (fold_in(key, replica), as a JAX replica folds in its axis index),
   exactly.
 - The host side of a launch from several threads: the launch counts,
   the library build and the per-device workers.
@@ -36,6 +37,7 @@ from progressivex_tpu_torch.eval import adelaide
 from progressivex_tpu_torch.kernels import _build
 from progressivex_tpu_torch.kernels import scoring as kscoring
 from progressivex_tpu_torch.models import get_family
+from progressivex_tpu_torch.ops import prng
 from progressivex_tpu_torch.parallel import sharding
 from progressivex_tpu_torch.parallel.sharding import fit_batch, make_mesh
 
@@ -215,8 +217,8 @@ def test_hyp_winner_reduction_equals_single_double_budget():
     n, b = 128, 32
     data, mask, w = _line_scenes(1, n=n, seed=9)
     params = rows_params(LINE_PARAMS, 1, "cpu")
-    g = torch.Generator().manual_seed(11)
-    idx = torch.randint(0, n, (1, 2 * b, family.sample_size), generator=g)
+    idx = torch.as_tensor(np.random.default_rng(11).integers(
+        0, n, (1, 2 * b, family.sample_size)))
     ok = torch.ones(1, 2 * b, dtype=torch.bool)
     adj = torch.zeros(1, n, n)
     compound = torch.zeros(1, n)
@@ -243,35 +245,36 @@ def test_hyp_winner_reduction_equals_single_double_budget():
 # (d) fit_batch
 
 def test_fit_batch_scene_mesh_equals_fit_rows():
-    """A (2, 1) mesh: each scene's one replica draws from
-    replica_seed(seed, 0, 0), so fit_rows on those draws, and fit_batch
-    without a mesh, give the same bits."""
+    """A (2, 1) mesh: each scene's one replica draws from fold_in(key, 0),
+    so fit_rows on those keys gives the same bits; fit_batch without a
+    mesh draws from the scenes' keys themselves, as fit_rows on them."""
     family = get_family("line2d")
     data, mask, w = _line_scenes(2, seed=3)
-    seeds = [5, 6]
-    got = fit_batch("line2d", LINE_CFG, LINE_PARAMS, data, mask, w, seeds,
+    keys = torch.stack([prng.key(5), prng.key(6)])
+    got = fit_batch("line2d", LINE_CFG, LINE_PARAMS, data, mask, w, keys,
                     mesh=cpu_mesh(2))
-    gens = [torch.Generator().manual_seed(sharding.replica_seed(s, 0, 0)) for s in seeds]
-    want = engine.fit_rows(family, LINE_CFG, LINE_PARAMS, data, mask, w, generators=gens)
+    want = engine.fit_rows(family, LINE_CFG, LINE_PARAMS, data, mask, w,
+                           keys=prng.fold_in(keys, 0))
     _assert_same_fit(got, want)
-    _assert_same_fit(fit_batch(family, LINE_CFG, LINE_PARAMS, data, mask, w, seeds), want)
+    _assert_same_fit(fit_batch(family, LINE_CFG, LINE_PARAMS, data, mask, w, keys),
+                     engine.fit_rows(family, LINE_CFG, LINE_PARAMS, data, mask, w,
+                                     keys=keys))
     assert got.restart == (0, 0) and bool((got.n_models == 2).all())
 
 
 def test_fit_batch_hyp_mesh_equals_fit_rows_on_replica_draws():
     """A (1, 3) mesh: three replicas of each row, against fit_rows with
-    the hyp axis on the same three generators a row; the samples drawn
-    are three times one replica's."""
+    the hyp axis on the scene's key handed to all three replicas; the
+    samples drawn are three times one replica's."""
     family = get_family("line2d")
     data, mask, w = _line_scenes(1, seed=4)
-    got = fit_batch("line2d", LINE_CFG, LINE_PARAMS, data, mask, w, [8],
+    key = prng.key(8)[None]
+    got = fit_batch("line2d", LINE_CFG, LINE_PARAMS, data, mask, w, key,
                     mesh=cpu_mesh(1, 3))
-    gens = [[torch.Generator().manual_seed(sharding.replica_seed(8, 0, h))
-             for h in range(3)]]
     want = engine.fit_rows(family, dataclasses.replace(LINE_CFG, hyp_axis="hyp"),
-                           LINE_PARAMS, data, mask, w, generators=gens)
+                           LINE_PARAMS, data, mask, w, keys=key[:, None].expand(1, 3, 2))
     _assert_same_fit(got, want)
-    one = fit_batch("line2d", LINE_CFG, LINE_PARAMS, data, mask, w, [8])
+    one = fit_batch("line2d", LINE_CFG, LINE_PARAMS, data, mask, w, key)
     per_round = LINE_CFG.n_hypotheses
     assert int(one.samples_drawn[0]) == per_round * int(one.rounds_run[0])
     assert int(got.samples_drawn[0]) == 3 * per_round * int(got.rounds_run[0])
@@ -287,9 +290,9 @@ def test_replicas_on_two_devices_keep_replica_order():
     cfg = dataclasses.replace(LINE_CFG, hyp_axis="hyp")
 
     def fit(hyp_devices):
-        gens = [[torch.Generator().manual_seed(100 * r + h) for h in range(3)]
-                for r in range(2)]
-        return engine.fit_rows(family, cfg, LINE_PARAMS, data, mask, w, generators=gens,
+        keys = torch.stack([torch.stack([prng.key(100 * r + h) for h in range(3)])
+                            for r in range(2)])
+        return engine.fit_rows(family, cfg, LINE_PARAMS, data, mask, w, keys=keys,
                                hyp_devices=hyp_devices)
 
     devices = [torch.device("cpu"), torch.device("cpu", 0), torch.device("cpu")]
@@ -307,7 +310,8 @@ def test_replicas_on_two_devices_keep_replica_order():
 def test_fit_batch_restarts_over_a_two_by_two_mesh():
     """F with two restarts a scene on a (2, 2) mesh (tests/test_sharding.py's
     fundamental case): both restarts of a scene sit on its shard, and
-    the winner is select_restart's over fit_rows on the same draws."""
+    the winner is select_restart's over fit_rows on the same keys (each
+    scene's key split into its restarts', as engine.fit splits it)."""
     family = get_family("fundamental")
     r = np.random.default_rng(2)
     n = 128
@@ -317,13 +321,13 @@ def test_fit_batch_restarts_over_a_two_by_two_mesh():
     cfg = EngineConfig(family="fundamental", n_hypotheses=32, max_rounds=2,
                        pearl_iters=1, icm_sweeps=1, sampler_id=0, n_restarts=2)
     params = make_params(threshold=1.0, confidence=0.9, min_inliers=10, n_valid=n)
-    gens = [torch.Generator().manual_seed(1), torch.Generator().manual_seed(2)]
-    got = fit_batch(family, cfg, params, data, mask, w, gens, mesh=cpu_mesh(2, 2))
-    gens = [torch.Generator().manual_seed(1), torch.Generator().manual_seed(2)]
+    keys = torch.stack([prng.key(1), prng.key(2)])
+    got = fit_batch(family, cfg, params, data, mask, w, keys, mesh=cpu_mesh(2, 2))
     rows = engine.fit_rows(
         family, dataclasses.replace(cfg, n_restarts=1, hyp_axis="hyp"), params,
         data.repeat_interleave(2, 0), mask.repeat_interleave(2, 0),
-        w.repeat_interleave(2, 0), generators=[[g, g] for g in gens for _ in range(2)])
+        w.repeat_interleave(2, 0),
+        keys=prng.split(keys, 2).reshape(4, 1, 2).expand(4, 2, 2))
     for s in range(2):
         energies = rows.energy[2 * s:2 * s + 2].tolist()
         best = engine.select_restart(energies, cfg.restart_rule,
@@ -332,8 +336,8 @@ def test_fit_batch_restarts_over_a_two_by_two_mesh():
         assert torch.equal(got.labels[s], rows.labels[2 * s + best])
         assert torch.equal(got.descs[s], rows.descs[2 * s + best])
     assert bool(torch.isfinite(got.energy).all())
-    with pytest.raises(ValueError, match="generator of its own"):
-        fit_batch(family, cfg, params, data, mask, w, [gens[0]] * 2, mesh=cpu_mesh(2))
+    with pytest.raises(ValueError, match="keys of shape"):
+        fit_batch(family, cfg, params, data, mask, w, keys[:1], mesh=cpu_mesh(2))
 
 
 # The host side of launches from several threads

@@ -2,8 +2,8 @@
 JAX package's device loops, which a CUDA graph captures on the card,
 core/graphs.py), checked on the CPU.
 
-- Every stage that core/graphs.py captures (`engine.prepare`, `start`,
-  `round_propose`, `round_update`, `finish`) runs with torch.Tensor's
+- Every stage that core/graphs.py captures (`engine.prepare`, `draw`,
+  `start`, `round_propose`, `round_update`, `finish`) runs with torch.Tensor's
   host reads (`__bool__`, `__int__`, `__float__`, `__index__`, `item`,
   `tolist`, `cpu`, `numpy`) patched to raise, for H, F (two restarts as
   rows), E, lines, VPs and PnP at a few hundred points and three rounds,
@@ -35,11 +35,11 @@ from progressivex_tpu_torch.eval import extras
 from progressivex_tpu_torch.io.data import load_corr_scene, load_tless_scene
 from progressivex_tpu_torch.kernels import scoring
 from progressivex_tpu_torch.models import get_family
-from progressivex_tpu_torch.ops import labeling, linalg
+from progressivex_tpu_torch.ops import labeling, linalg, prng
 
 _READS = ("__bool__", "__int__", "__float__", "__index__", "item", "tolist", "cpu",
           "numpy")
-_STAGES = ("prepare", "start", "round_propose", "round_update", "finish")
+_STAGES = ("prepare", "draw", "start", "round_propose", "round_update", "finish")
 
 
 @pytest.fixture(autouse=True)
@@ -131,7 +131,7 @@ def _banded_fit(**cfg_kw):
                          neighborhood_radius=200.0, max_tanimoto=0.4)
     return engine.fit_rows(get_family("homography"), cfg, params, data, mask,
                            torch.ones(2, 256),
-                           generators=[torch.Generator().manual_seed(s) for s in (1, 2)])
+                           keys=torch.stack([prng.key(s) for s in (1, 2)]))
 
 
 def test_banded_prosac_stages_read_nothing(read_free_stages):
@@ -311,3 +311,48 @@ def test_eager_config_fields_are_kept():
     cfg = dataclasses.replace(EngineConfig(family="homography"), unroll_rounds=True)
     assert engine.unrolled(cfg)
     assert not engine.unrolled(dataclasses.replace(cfg, live_progress=True))
+
+
+@pytest.mark.parametrize("case", ["banded PROSAC", "F restarts"])
+def test_graph_fit_reads_nothing_before_the_rounds(case, emulated_graphs, monkeypatch):
+    """core/graphs.py's fit reads nothing to the host from its call until
+    its rounds start (the draw of the samples from the rows' keys runs in
+    the `start` graph), then at most two values a round (`any_pearl`,
+    `all_done`)."""
+    saved = {name: getattr(torch.Tensor, name) for name in _READS}
+    reads = {"before": 0, "rounds": 0}
+    where = ["outside"]
+
+    def counting(name):
+        def read(self, *a, **k):
+            if where[0] in reads:
+                reads[where[0]] += 1
+            return saved[name](self, *a, **k)
+        return read
+
+    fit_rows, stage = graphs.fit_rows, graphs._Graphs.stage
+
+    def watched_fit_rows(*a, **k):
+        where[0] = "before"
+        try:
+            return fit_rows(*a, **k)
+        finally:
+            where[0] = "outside"
+
+    def watched_stage(self, name, fn, outs=None):
+        if name in ("propose", "finish"):
+            where[0] = "rounds" if name == "propose" else "finish"
+        return stage(self, name, fn, outs)
+
+    monkeypatch.setattr(graphs, "fit_rows", watched_fit_rows)
+    monkeypatch.setattr(graphs._Graphs, "stage", watched_stage)
+    fit = _f_restarts if case == "F restarts" else _banded_fit
+    fit()  # builds the stages
+    reads.update(before=0, rounds=0)
+    for name in _READS:
+        monkeypatch.setattr(torch.Tensor, name, counting(name))
+    res = fit()
+    for name, fn in saved.items():
+        monkeypatch.setattr(torch.Tensor, name, fn)
+    assert reads["before"] == 0
+    assert 0 < reads["rounds"] <= 2 * int(res.rounds_run.max())

@@ -13,12 +13,15 @@ Every fit is one bundled scene under its AdelaideRMF protocol's engine
 (H: unihouse, oldclassicswing, unionhouse; F: book, breadcube, cubetoy,
 with F's restarts inside the fit), with H replicas of every proposal.
 `--package torch` runs `parallel/sharding.fit_batch` over a virtual
-(1, H) mesh of the card (seed s: `replica_seed(s, restart, h)`), one fit a
+(1, H) mesh of the card (seed s: PRNGKey(s), replica h of a restart
+drawing from fold_in(key, h), as in the JAX package), one fit a
 seed; `--package jax` runs the JAX package's named-vmap emulation of a
 (1, H) mesh (tests/test_sharding.py:48-65: each replica folds its axis
 index into the key) on its default device, the seeds as one vmapped
-batch (key PRNGKey(s)). The two draw different samples, so compare the
-distributions, not one seed. Prints one JSON line a (scene, H) with each
+batch (key PRNGKey(s)). The port draws the JAX package's samples for a
+seed (ops/prng.py), so a seed's two fits start from the same samples
+where the two kNN graphs agree; float32 rounding can still part them, so
+compare the distributions, not one seed. Prints one JSON line a (scene, H) with each
 seed's ME and model count, their mean and range, and the samples drawn a
 round. `--replay` (with `--package jax`, on a card) also fits the port's
 engine on the samples each JAX run drew (its sort, graph and replicas'
@@ -77,6 +80,7 @@ def _torch_fits(name, hyp, seeds):
     from progressivex_tpu_torch.core import engine
     from progressivex_tpu_torch.eval.adelaide import scene_kwargs
     from progressivex_tpu_torch.io.metrics import misclassification
+    from progressivex_tpu_torch.ops import prng
     from progressivex_tpu_torch.parallel.sharding import fit_batch, make_mesh
 
     problem = PROBLEM[name]
@@ -89,7 +93,8 @@ def _torch_fits(name, hyp, seeds):
         res = fit_batch(FAMILY[problem], cfg, params._replace(n_valid=n),
                         torch.as_tensor(data, device=card)[None],
                         torch.as_tensor(mask, device=card)[None],
-                        torch.ones(1, len(mask), device=card), [s], mesh=mesh)
+                        torch.ones(1, len(mask), device=card),
+                        prng.key(s, card)[None], mesh=mesh)
         one = engine.row_result(res, 0)
         models, labels = engine.compact_result(one, n)
         out.append({"seed": s, "me": float(misclassification(labels, gt)),

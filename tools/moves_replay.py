@@ -52,6 +52,7 @@ def main():
     from progressivex_tpu_torch.eval.adelaide import scene_kwargs
     from progressivex_tpu_torch.models import get_family
     from progressivex_tpu_torch.ops import labeling
+    from progressivex_tpu_torch.ops import prng
     from progressivex_tpu_torch.parallel.sharding import fit_batch, make_mesh
 
     card = torch.device("cuda", 0)
@@ -103,7 +104,8 @@ def main():
     mesh = make_mesh(1, args.hyp, devices=[card] * args.hyp)
     lines = []
     for s in range(args.seeds):
-        res = fit_batch(family, off, params, tdata, tmask, weights, [s], mesh=mesh)
+        res = fit_batch(family, off, params, tdata, tmask, weights,
+                        prng.key(s, card)[None], mesh=mesh)
         descs, active = res.descs, res.active
         labels = res.labels[:, perm]  # the sorted order the moves work in
         moves = (family, cfg, tp, sd[None], sm[None], tw)

@@ -10,8 +10,9 @@ Prints one JSON line a package: the share of valid samples, of samples
 whose companions all come from the center's neighbourhood (local), of
 samples inside one ground-truth structure (single_structure, and among
 the local ones), of samples with a repeated point, and of centers on an
-outlier. The two draw from different generators, so compare shares, not
-samples. Needs JAX.
+outlier. The port draws from the JAX package's keys (ops/prng.py): the
+same keys give the same samples, so the two lines are equal and the
+script also asserts that the samples are. Needs JAX.
 """
 
 import argparse
@@ -57,6 +58,7 @@ def main():
     from progressivex_tpu.ops.knn import knn_graph
     from progressivex_tpu.ops.sampling import sample_minimal as jax_sample
     from progressivex_tpu_torch.core import engine
+    from progressivex_tpu_torch.ops import prng
     from progressivex_tpu_torch.ops.sampling import sample_minimal as torch_sample
 
     data, mask, gt, n = _scene(args.scene)
@@ -75,14 +77,14 @@ def main():
     draw = jax.jit(jax.vmap(lambda k: jax_sample(k, cfg.sampler_id, b, m, jnp.array(ms), n,
                                                  gi, gm)))
     ji, jo = draw(jax.random.split(jax.random.PRNGKey(args.seed), args.batches))
-    gen = torch.Generator().manual_seed(args.seed)
-    ti_t, tm_t = torch.as_tensor(graph_idx), torch.as_tensor(graph_mask)
-    draws = [torch_sample(gen, cfg.sampler_id, b, m, n, ti_t, tm_t)
-             for _ in range(args.batches)]
+    keys = prng.split(prng.key(args.seed), args.batches)
+    ti, to = torch_sample(keys, cfg.sampler_id, b, m, n, torch.as_tensor(graph_idx),
+                          torch.as_tensor(graph_mask))
+    if not (np.array_equal(ti.numpy(), np.array(ji)) and np.array_equal(to.numpy(), np.array(jo))):
+        raise SystemExit("the port's samples differ from the JAX package's")
     for package, idx, ok in (
             ("jax", np.array(ji).reshape(-1, m), np.array(jo).reshape(-1)),
-            ("torch", torch.cat([d[0] for d in draws]).numpy(),
-             torch.cat([d[1] for d in draws]).numpy())):
+            ("torch", ti.reshape(-1, m).numpy(), to.reshape(-1).numpy())):
         print(json.dumps({"package": package, "scene": args.scene,
                           "sampler_id": cfg.sampler_id,
                           **_shares(idx, ok, graph_idx, graph_mask, gt_sorted)}),
