@@ -27,7 +27,8 @@ Phases, each of which raises on failure:
      T-LESS scene at seeds 0, 1 and 2 (these three reach no kernel in the
      JAX package and launch none here); checks each scene's
      misclassification against the JAX package's, and T-LESS's mean pose
-     errors against tests/test_pose6d.py's anchors; then
+     errors against tests/test_pose6d.py's anchors or the JAX package's
+     errors at the same seeds on the card, whichever is larger; then
      findEssentialMatrices on the essential gauntlet's scenes
      (tests/test_gauntlet.py: two motions at seeds 0-2, three motions at
      seed 1, three restarts), scored by the fundamental kernel, against
@@ -40,7 +41,9 @@ Phases, each of which raises on failure:
      findVanishingPointsBatched on four synthetic scenes each,
      find6DPosesBatched on [tless, tless], findEssentialMatricesBatched on
      four two-motion gauntlet scenes), the launch counts set to 0 just
-     before each and read after: each scene against its limit, and each
+     before each and read after: each scene against its limit (where
+     the JAX package's result on the same draw lies above an anchor of
+     another draw, that result), and each
      scene alone against the same scene listed first in a batch; then the
      throughput bench (`cli.bench_main`) at a small lane target and the
      essential bench line (`eval/extras.bench_essential`);
@@ -191,6 +194,24 @@ TLESS_SEEDS = (0, 1, 2)
 TLESS_MEAN_GATES = ((8.25, 16.0), (2.5, 12.2))
 TLESS_BATCHED_GATES = ((9.9, 28.8), (2.0, 14.64))
 ME_SLACK = 0.03
+# The JAX package's results for the very calls of phase 3 P and phase 5 H
+# and L, at the same random_seed and so on the same samples (the port
+# draws the JAX package's), on an NVIDIA H100 80GB HBM3 at 700 W, from
+#   python3 tools/shared_seed_gates.py --package jax
+# The anchors above come from other draws: the single-scene key where a
+# batched row folds in its pad, scene and restart, the worst of ten other
+# seeds, or the CPU's rounding of T-LESS's float32 P3P. Where the JAX
+# package's own result on the same draw lies above such an anchor, the
+# port is held to that result instead (the ME ones + ME_SLACK); elsewhere
+# the anchor stands: each gate takes the larger of the two.
+JAX_SAME_DRAW_TLESS_MEAN = ((7.404283295107169, 16.92479557810356),
+                            (1.7147464613588312, 9.776263781574665))
+JAX_SAME_DRAW_BATCHED_ME = {
+    "H": {"oldclassicswing": 0.0026385224274406704, "unionhouse": 0.0060240963855421326,
+          "unihouse": 0.21593090211132437},
+    "L": {"lines-0": 0.08522012578616356, "lines-1": 0.11572327044025155,
+          "lines-2": 0.34874213836477985, "lines-3": 0.11949685534591192},
+}
 LABEL_DISAGREEMENT_MAX = 0.01
 # findEssentialMatrices on the gauntlet's scenes (eval/extras.gauntlet_scene:
 # "two-s" two motions, "three-s" three motions, scene seed s, random_seed
@@ -1200,11 +1221,12 @@ BATCHED_OUTPUTS = {}
 def phase_batched(torch, problem):
     """The batched front end of `problem` on its bundled scenes, on the
     card, with the launch counts set to 0 just before it and read just
-    after: each scene's ME against the JAX package's CPU ME + ME_SLACK;
-    then each scene alone through the same front end against the same
-    scene inside the batch, put first in the list so that its rows draw
-    from the same seeds as alone (api_batch seeds a row from its scene's
-    index): the same number of models, labels apart on at most
+    after: each scene's ME against the JAX package's CPU ME, or its ME on
+    the same draw where that is larger (JAX_SAME_DRAW_BATCHED_ME), +
+    ME_SLACK; then each scene alone through the same front end against
+    the same scene inside the batch, put first in the list so that its
+    rows draw from the same keys as alone (api_batch folds a row's key
+    from its scene's index): the same number of models, labels apart on at most
     LABEL_DISAGREEMENT_MAX of the points, instances matched one to one.
     Every scene is checked and printed before a failure raises."""
     from progressivex_tpu_torch.io.data import load_corr_scene
@@ -1232,6 +1254,7 @@ def phase_batched(torch, problem):
                 and labels.shape == gt.shape and np.isfinite(models).all()):
             raise AssertionError(f"batched {scene}: outputs {models.shape}, {labels.shape}")
         me = float(misclassification(labels, gt))
+        limit = max(jax_me[scene], JAX_SAME_DRAW_BATCHED_ME.get(problem, {}).get(scene, 0.0))
         # A row's seed comes from its scene's index in the list, so the
         # batch it is held against puts the scene first, as alone.
         i = scenes.index(scene)
@@ -1242,13 +1265,13 @@ def phase_batched(torch, problem):
         same_k = alone_models.shape == models.shape
         disagreement = _label_disagreement(alone_labels, labels, k) if same_k else 1.0
         res["per_scene"][scene] = {
-            "me": me, "jax_cpu_me": jax_me[scene], "n_models": k,
+            "me": me, "jax_cpu_me": jax_me[scene], "limit": limit, "n_models": k,
             "n_models_alone": alone_models.shape[0] // 3,
             "me_alone": float(misclassification(alone_labels, gt)),
             "alone_label_disagreement": disagreement}
-        if me > jax_me[scene] + ME_SLACK:
+        if me > limit + ME_SLACK:
             failures.append(f"batched {scene}: ME {me} above the JAX package's "
-                            f"{jax_me[scene]} + {ME_SLACK}")
+                            f"{limit} + {ME_SLACK}")
         if not same_k:
             failures.append(f"batched {scene}: {k} models in the batch, "
                             f"{alone_models.shape[0] // 3} alone")
@@ -1409,8 +1432,9 @@ def phase_tless(torch):
     """find6DPoses on T-LESS at TLESS_SEEDS, the launch counts set to 0
     just before each seed and read after (the path reaches no kernel):
     every seed at least 2 instances, the mean pose errors at or under
-    TLESS_MEAN_GATES. The first seed's wall time holds the card's first
-    SVD and solve calls."""
+    TLESS_MEAN_GATES or the JAX package's on the same seeds
+    (JAX_SAME_DRAW_TLESS_MEAN), whichever is larger. The first seed's
+    wall time holds the card's first SVD and solve calls."""
     import progressivex_tpu_torch
 
     (xy, xyz), poses, K = _new_scene("tless")
@@ -1436,10 +1460,12 @@ def phase_tless(torch):
             failures.append(f"tless seed {seed}: {res['n_models']} instances")
         per_seed.append(errs)
     mean = np.array(per_seed).mean(0)  # [pose, (rot, tr)]
+    gates = [tuple(max(a, j) for a, j in zip(anchor, same))
+             for anchor, same in zip(TLESS_MEAN_GATES, JAX_SAME_DRAW_TLESS_MEAN)]
     print("tless mean pose errors", json.dumps(
-        {"seeds": list(TLESS_SEEDS), "mean": mean.tolist(), "gates": TLESS_MEAN_GATES}),
-        flush=True)
-    for gi, ((rot, tr), (rg, tg)) in enumerate(zip(mean, TLESS_MEAN_GATES)):
+        {"seeds": list(TLESS_SEEDS), "mean": mean.tolist(), "anchors": TLESS_MEAN_GATES,
+         "jax_same_draw": JAX_SAME_DRAW_TLESS_MEAN, "gates": gates}), flush=True)
+    for gi, ((rot, tr), (rg, tg)) in enumerate(zip(mean, gates)):
         if not (rot <= rg and tr <= tg):
             failures.append(f"tless pose {gi}: mean errors {rot:.3f} deg, {tr:.3f} mm "
                             f"above {rg} deg, {tg} mm")
@@ -1495,7 +1521,8 @@ def phase_batched_new(torch, problem, names):
     """The batched front end of `problem` on `names`, the launch counts
     set to 0 just before the batch and read after (the path reaches no
     kernel): each scene against its limit (lines and VPs: the JAX
-    package's CPU ME + ME_SLACK; T-LESS: at least 2 instances within
+    package's CPU ME, for lines the larger of the worst of ten seeds and
+    the ME on the same draw, + ME_SLACK; T-LESS: at least 2 instances within
     TLESS_BATCHED_GATES); then each scene alone against the same scene
     listed first in a batch (phase 5's rule): the same number of models,
     labels apart on at most LABEL_DISAGREEMENT_MAX, instances matched one
@@ -1525,9 +1552,10 @@ def phase_batched_new(torch, problem, names):
                                 f"{TLESS_BATCHED_GATES}")
         else:
             if problem == "L":
-                limit = JAX_CPU_ME_LINES_WORST[int(name.partition("-")[2])]
+                limit = max(JAX_CPU_ME_LINES_WORST[int(name.partition("-")[2])],
+                            JAX_SAME_DRAW_BATCHED_ME["L"][name])
             row["me"] = me = float(misclassification(labels, truth))
-            row["jax_cpu_me"] = limit
+            row["limit"] = limit
             if me > limit + ME_SLACK:
                 failures.append(f"batched {name}: ME {me} above the JAX package's "
                                 f"{limit} + {ME_SLACK}")
