@@ -1,0 +1,166 @@
+"""Scene generators of the synthetic AdelaideRMF datasets: a frozen copy.
+
+`_rot`, `_h_scene` and `_f_scene` are those of
+progressivex_tpu_torch/eval/synth_adelaide.py, unchanged, and
+`scene_seed` is its CRC-32 seeding, so a scene drawn here from an integer
+seed is the scene that module writes for it. The copy keeps the
+benchmark's traffic fixed while the program changes. The specs (name,
+points, structures, outlier rate of each scene) are data of each
+configuration (configs/*.json), not of this file.
+
+`scene_seed` takes any seed that formats as text: the harness draws a
+request's scenes from "<run seed>/<request>/<copy>", so every scene of a
+run is a fresh draw and the same seed gives the same scenes.
+"""
+
+from __future__ import annotations
+
+import zlib
+
+import numpy as np
+
+_W, _H = 640, 480  # image frame of the generated correspondences
+
+
+def _rot(rng, max_deg):
+    """Random small 3D rotation matrix."""
+    ax = rng.normal(size=3)
+    ax /= np.linalg.norm(ax)
+    a = np.deg2rad(rng.uniform(2.0, max_deg))
+    K = np.array([[0, -ax[2], ax[1]], [ax[2], 0, -ax[0]], [-ax[1], ax[0], 0]])
+    return np.eye(3) + np.sin(a) * K + (1 - np.cos(a)) * (K @ K)
+
+
+def _h_scene(rng, n, k, outlier_rate):
+    """k planar structures under distinct homographies + uniform outliers.
+
+    Structures are spatially COMPACT clusters (like real facade planes) —
+    this is what makes NAPSAC-style local sampling meaningful on the
+    synthetic data, as it is on the real scenes."""
+    n_out = int(round(n * outlier_rate))
+    n_in = n - n_out
+    base = n_in // k
+    sizes = [base + (1 if j < n_in - base * k else 0) for j in range(k)]
+    rows, labels = [], []
+    for j, sz in enumerate(sizes):
+        cx, cy = rng.uniform(100, _W - 100), rng.uniform(80, _H - 80)
+        w, h = rng.uniform(80, 220), rng.uniform(60, 160)
+        p1 = np.stack([
+            rng.uniform(cx - w / 2, cx + w / 2, sz),
+            rng.uniform(cy - h / 2, cy + h / 2, sz),
+        ], axis=1)
+        # Plane-induced homography: rotation + anisotropic scale + shear +
+        # translation + mild perspective.
+        A = (_rot(rng, 12)[:2, :2]
+             * rng.uniform(0.85, 1.15, (2,))[None, :])
+        t = rng.uniform(-60, 60, 2)
+        v = rng.uniform(-2e-4, 2e-4, 2)
+        Hm = np.eye(3)
+        Hm[:2, :2] = A
+        Hm[:2, 2] = t
+        Hm[2, :2] = v
+        ph = np.concatenate([p1, np.ones((sz, 1))], 1) @ Hm.T
+        p2 = ph[:, :2] / ph[:, 2:3] + rng.normal(scale=0.8, size=(sz, 2))
+        rows.append(np.concatenate([p1, p2], axis=1))
+        labels.append(np.full(sz, j + 1, np.int32))
+    rows.append(np.stack([
+        rng.uniform(0, _W, n_out), rng.uniform(0, _H, n_out),
+        rng.uniform(0, _W, n_out), rng.uniform(0, _H, n_out),
+    ], axis=1))
+    labels.append(np.zeros(n_out, np.int32))
+    return np.concatenate(rows), np.concatenate(labels)
+
+
+def _f_scene(rng, n, k, outlier_rate):
+    """k independently moving rigid 3D objects seen by one camera pair +
+    uniform outliers — each object induces its own fundamental matrix.
+
+    Objects are placed with NON-OVERLAPPING image projections (rejection-
+    sampled centers): the real AdelaideRMF-F scenes photograph distinct
+    physical objects occupying distinct image regions (verified: the
+    bundled `book` scene has 0% cross-structure edges in the protocol's
+    12-NN/radius-50 joint-space graph), and the F protocol's strong
+    spatial term (w=0.5) rightly suppresses structures that interpenetrate
+    spatially — early generator versions with free random centers produced
+    13-32% cross-structure edges on some scenes and measured ME 0.45-0.65
+    THERE ONLY, while spatially-disjoint scenes fit at ME <= 0.03."""
+    f = 600.0
+    n_out = int(round(n * outlier_rate))
+    n_in = n - n_out
+    base = n_in // k
+    sizes = [base + (1 if j < n_in - base * k else 0) for j in range(k)]
+    rows, labels = [], []
+
+    def project(X):
+        return np.stack([
+            f * X[:, 0] / X[:, 2] + _W / 2,
+            f * X[:, 1] / X[:, 2] + _H / 2,
+        ], axis=1)
+
+    placed = []  # (image-plane center, projected radius) of earlier blobs
+    # More objects -> smaller objects (as in the real photographs: a
+    # 4-object F scene is four small items on a desk, not four
+    # frame-filling ones); keeps non-overlapping placement feasible.
+    spread = {1: 0.7, 2: 0.6, 3: 0.45}.get(k, 0.35)
+
+    def sample_center():
+        """Rejection-sample a blob center whose projection clears the
+        already-placed blobs; the margin relaxes every 60 tries so
+        4-object scenes always terminate."""
+        for attempt in range(240):
+            c = np.array([rng.uniform(-1.2, 1.2), rng.uniform(-0.8, 0.8),
+                          rng.uniform(4.0, 7.0)])
+            pc = np.array([f * c[0] / c[2] + _W / 2,
+                           f * c[1] / c[2] + _H / 2])
+            pr = f * 1.3 * spread / c[2]  # projected blob half-extent
+            margin = max(1.0 - 0.25 * (attempt // 60), 0.25)
+            if all(np.linalg.norm(pc - pc0) >= margin * (pr + pr0)
+                   for pc0, pr0 in placed):
+                placed.append((pc, pr))
+                return c
+        placed.append((pc, pr))
+        return c
+
+    for j, sz in enumerate(sizes):
+        # Compact 3D blob in front of the camera, spatially clear of the
+        # other objects' projections.
+        c = sample_center()
+        X = c + rng.uniform(-spread, spread, (sz, 3)) * np.array([1, 0.8, 0.6])
+        # Per-object rigid motion between the two frames (distinct F).
+        R = _rot(rng, 18)
+        t = rng.uniform(-0.5, 0.5, 3) + np.array([0, 0, rng.uniform(-0.3, 0.3)])
+        X2 = X @ R.T + t + c - c @ R.T  # rotate about the blob center
+        keep = (X[:, 2] > 1.0) & (X2[:, 2] > 1.0)
+        X, X2 = X[keep], X2[keep]
+        p1 = project(X) + rng.normal(scale=0.4, size=(len(X), 2))
+        p2 = project(X2) + rng.normal(scale=0.4, size=(len(X), 2))
+        inb = ((p1 >= 0) & (p1 < (_W, _H))).all(1) & \
+              ((p2 >= 0) & (p2 < (_W, _H))).all(1)
+        rows.append(np.concatenate([p1[inb], p2[inb]], axis=1))
+        labels.append(np.full(int(inb.sum()), j + 1, np.int32))
+    rows.append(np.stack([
+        rng.uniform(0, _W, n_out), rng.uniform(0, _H, n_out),
+        rng.uniform(0, _W, n_out), rng.uniform(0, _H, n_out),
+    ], axis=1))
+    labels.append(np.zeros(n_out, np.int32))
+    return np.concatenate(rows), np.concatenate(labels)
+
+
+
+
+GENERATORS = {"h_scene": _h_scene, "f_scene": _f_scene}
+
+
+def scene_seed(problem: str, name: str, seed) -> int:
+    """The generator seed of one scene: a CRC-32 of its problem, name and
+    seed, stable across processes."""
+    seed = int(seed) if isinstance(seed, (int, np.integer)) else seed
+    return zlib.crc32(f"{problem.upper()}/{name}/{seed}".encode())
+
+
+def draw_scene(generator: str, problem: str, spec, seed):
+    """One scene of `spec` (name, points, structures, outlier rate):
+    (corrs [n, 4] float64, labels [n] int32, 0 = outlier)."""
+    name, n, k, outlier_rate = spec
+    rng = np.random.default_rng(scene_seed(problem, name, seed))
+    return GENERATORS[generator](rng, int(n), int(k), float(outlier_rate))
