@@ -8,6 +8,7 @@ for it by name (the parity tests do); there is no silent fallback.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
@@ -40,10 +41,12 @@ def run_per_device(fn, jobs):
     current, one host thread a job when there are several, so that
     several cards are fed at once. Returns the results in the order of
     `jobs`; every job runs to its end, and the first exception is raised
-    here once all have."""
+    here once all have. Each thread runs in a copy of the caller's
+    context, so its spans (io/profiling.py) keep the caller's call id."""
     if len(jobs) == 1:
         (dev, args), = jobs
         return [_guarded(dev, fn, args)]
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
-        futures = [pool.submit(_guarded, dev, fn, args) for dev, args in jobs]
+        futures = [pool.submit(contextvars.copy_context().run, _guarded, dev, fn, args)
+                   for dev, args in jobs]
     return [f.result() for f in futures]

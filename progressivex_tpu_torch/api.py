@@ -35,6 +35,7 @@ import torch
 from progressivex_tpu_torch._device import resolve_device
 from progressivex_tpu_torch.core import engine
 from progressivex_tpu_torch.core.config import EngineConfig, make_params
+from progressivex_tpu_torch.io import profiling
 from progressivex_tpu_torch.models import get_family
 from progressivex_tpu_torch.ops import prng
 
@@ -105,99 +106,100 @@ def _run(family_name, data, weights, *, threshold, conf,
          restart_rule="energy", max_rounds=10, pearl_iters=3,
          max_subbatches=None, progress_callback=None, device=None):
     dev = resolve_device(device)
-    t0 = time.perf_counter()
-    data = np.ascontiguousarray(data, np.float32)
-    n = data.shape[0]
-    n_pad = _pad_to(n)
-    data_p = np.pad(data, ((0, n_pad - n), (0, 0)))
-    mask = np.zeros(n_pad, bool)
-    mask[:n] = True
-    w = np.ones(n_pad, np.float32)
-    if weights is not None and np.size(weights) > 0:
-        w[:n] = np.asarray(weights, np.float32).reshape(-1)[:n]
-    w[n:] = 0.0
-    graph_p = None
-    if graph_data is not None:
-        graph_p = np.pad(np.ascontiguousarray(graph_data, np.float32),
-                         ((0, n_pad - n), (0, 0)))
+    with profiling.call(dev, scenes=1):
+        t0 = time.perf_counter()
+        with profiling.span("progx.inputs"):
+            data = np.ascontiguousarray(data, np.float32)
+            n = data.shape[0]
+            n_pad = _pad_to(n)
+            data_p = np.pad(data, ((0, n_pad - n), (0, 0)))
+            mask = np.zeros(n_pad, bool)
+            mask[:n] = True
+            w = np.ones(n_pad, np.float32)
+            if weights is not None and np.size(weights) > 0:
+                w[:n] = np.asarray(weights, np.float32).reshape(-1)[:n]
+            w[n:] = 0.0
+            graph_p = None
+            if graph_data is not None:
+                graph_p = np.pad(np.ascontiguousarray(graph_data, np.float32),
+                                 ((0, n_pad - n), (0, 0)))
 
-    family = get_family(family_name)
-    n_hyp = _hyp_budget(max_iters, family.max_solutions, family_name)
-    cfg = EngineConfig(
-        family=family_name,
-        n_hypotheses=n_hyp,
-        n_subbatches=_n_subbatches(max_iters, n_hyp, max_subbatches),
-        sampler_id=int(sampler_id),
-        lo_spatial_lambda=lo_spatial_lambda,
-        n_restarts=int(n_restarts),
-        final_polish=int(final_polish),
-        final_relabel=int(final_relabel),
-        magsac_levels=int(magsac_levels),
-        split_pass=int(split_pass),
-        polish_trim=float(polish_trim),
-        polish_research=int(polish_research),
-        restart_rule=str(restart_rule),
-        max_rounds=int(max_rounds),
-        pearl_iters=int(pearl_iters),
-        live_progress=progress_callback is not None,
-    )
-    params = make_params(
-        threshold=threshold,
-        confidence=conf,
-        spatial_weight=spatial_coherence_weight,
-        neighborhood_radius=neighborhood_ball_radius,
-        max_tanimoto=maximum_tanimoto_similarity,
-        min_inliers=minimum_point_number,
-        max_models=maximum_model_number if maximum_model_number > 0 else _UNLIMITED,
-        scoring_exponent=scoring_exponent,
-        n_valid=n,
-    )
-    inputs = (torch.from_numpy(data_p).to(dev), torch.from_numpy(mask).to(dev),
-              torch.from_numpy(w).to(dev))
-    graph_t = None if graph_p is None else torch.from_numpy(graph_p).to(dev)
+            family = get_family(family_name)
+            n_hyp = _hyp_budget(max_iters, family.max_solutions, family_name)
+            cfg = EngineConfig(
+                family=family_name,
+                n_hypotheses=n_hyp,
+                n_subbatches=_n_subbatches(max_iters, n_hyp, max_subbatches),
+                sampler_id=int(sampler_id),
+                lo_spatial_lambda=lo_spatial_lambda,
+                n_restarts=int(n_restarts),
+                final_polish=int(final_polish),
+                final_relabel=int(final_relabel),
+                magsac_levels=int(magsac_levels),
+                split_pass=int(split_pass),
+                polish_trim=float(polish_trim),
+                polish_research=int(polish_research),
+                restart_rule=str(restart_rule),
+                max_rounds=int(max_rounds),
+                pearl_iters=int(pearl_iters),
+                live_progress=progress_callback is not None,
+            )
+            params = make_params(
+                threshold=threshold,
+                confidence=conf,
+                spatial_weight=spatial_coherence_weight,
+                neighborhood_radius=neighborhood_ball_radius,
+                max_tanimoto=maximum_tanimoto_similarity,
+                min_inliers=minimum_point_number,
+                max_models=maximum_model_number if maximum_model_number > 0 else _UNLIMITED,
+                scoring_exponent=scoring_exponent,
+                n_valid=n,
+            )
+            inputs = (torch.from_numpy(data_p).to(dev), torch.from_numpy(mask).to(dev),
+                      torch.from_numpy(w).to(dev))
+            graph_t = None if graph_p is None else torch.from_numpy(graph_p).to(dev)
 
-    def fit_once():
-        return engine.fit(family, cfg, params, *inputs,
-                          key=prng.key(random_seed, dev),
-                          graph_data=graph_t)
+        def fit_once():
+            return engine.fit(family, cfg, params, *inputs,
+                              key=prng.key(random_seed, dev),
+                              graph_data=graph_t)
 
-    engine.LIVE_CALLBACK = progress_callback
-    try:
-        result = fit_once()
-    finally:
-        engine.LIVE_CALLBACK = None
-    descs, labels = engine.compact_result(result, n)
-    processing_time = time.perf_counter() - t0
-    if do_logging:
-        print(f"[progressivex_tpu_torch] {family_name}: {descs.shape[0]} "
-              f"instances, {result.rounds_run} rounds, {result.total_iters} "
-              f"samples, {processing_time:.3f}s on {dev}")
-    stats = None
-    if with_statistics:
-        k = descs.shape[0]
-        rl = result.round_log
-        phase_times = None
-        if isinstance(with_statistics, str) and "phase" in with_statistics:
-            from progressivex_tpu_torch.io.profiling import measure_phase_times
-
-            phase_times = measure_phase_times(fit_once, dev)
-        stats = Statistics(
-            processing_time=processing_time,
-            rounds_run=result.rounds_run,
-            ransac_iterations=result.total_iters,
-            model_number=k,
-            labeling=labels,
-            inliers_of_each_model=[np.flatnonzero(labels == i) for i in range(k)],
-            iterations=[
-                {"accepted": rl.accepted[r], "proposal_inliers": rl.inliers[r],
-                 "tanimoto": rl.tanimoto[r], "proposal_score": rl.score[r],
-                 "pearl_energy": rl.energy[r], "active_models": rl.n_active[r]}
-                for r in range(result.rounds_run)
-            ],
-            phase_times=phase_times,
-            restart=result.restart,
-            restart_energies=result.restart_energies,
-        )
+        engine.LIVE_CALLBACK = progress_callback
+        try:
+            result = fit_once()
+        finally:
+            engine.LIVE_CALLBACK = None
+        with profiling.span("progx.results"):
+            descs, labels = engine.compact_result(result, n)
+            processing_time = time.perf_counter() - t0
+            if do_logging:
+                print(f"[progressivex_tpu_torch] {family_name}: {descs.shape[0]} "
+                      f"instances, {result.rounds_run} rounds, {result.total_iters} "
+                      f"samples, {processing_time:.3f}s on {dev}")
+            stats = None
+            if with_statistics:
+                k = descs.shape[0]
+                rl = result.round_log
+                phase_times = None
+                if isinstance(with_statistics, str) and "phase" in with_statistics:
+                    phase_times = profiling.measure_phase_times(fit_once, dev)
+                stats = Statistics(
+                    processing_time=processing_time,
+                    rounds_run=result.rounds_run,
+                    ransac_iterations=result.total_iters,
+                    model_number=k,
+                    labeling=labels,
+                    inliers_of_each_model=[np.flatnonzero(labels == i) for i in range(k)],
+                    iterations=[
+                        {"accepted": rl.accepted[r], "proposal_inliers": rl.inliers[r],
+                         "tanimoto": rl.tanimoto[r], "proposal_score": rl.score[r],
+                         "pearl_energy": rl.energy[r], "active_models": rl.n_active[r]}
+                        for r in range(result.rounds_run)
+                    ],
+                    phase_times=phase_times,
+                    restart=result.restart,
+                    restart_energies=result.restart_energies,
+                )
     return descs, labels, stats
 
 

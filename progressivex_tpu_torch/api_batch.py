@@ -53,6 +53,7 @@ from progressivex_tpu_torch import api as _api
 from progressivex_tpu_torch._device import resolve_device
 from progressivex_tpu_torch.core import engine
 from progressivex_tpu_torch.core.config import EngineConfig, make_params
+from progressivex_tpu_torch.io import profiling
 from progressivex_tpu_torch.models import get_family
 from progressivex_tpu_torch.ops import prng
 from progressivex_tpu_torch.parallel import sharding
@@ -162,70 +163,75 @@ def _run_batched(
     cfg, params = engine_setup(family_name, threshold=th_vec[0], **setup)
     n_restarts = max(int(n_restarts), 1)
 
-    buckets: dict[int, list[int]] = {}
-    for i, d in enumerate(datas):
-        buckets.setdefault(pad_to or _api._pad_to(d.shape[0]), []).append(i)
+    with profiling.call(dev, scenes=n_scenes):
+        buckets: dict[int, list[int]] = {}
+        for i, d in enumerate(datas):
+            buckets.setdefault(pad_to or _api._pad_to(d.shape[0]), []).append(i)
 
-    results: list = [None] * n_scenes
-    for n_pad in sorted(buckets):
-        idxs = buckets[n_pad]
-        # Lanes cover the scenes and divide over the mesh's scenes axis
-        # (both powers of two, so max() suffices), as in the JAX package.
-        n_lanes = int(lanes) if lanes else max(_next_pow2(len(idxs)),
-                                               _next_pow2(n_scene_axis))
-        if n_lanes < len(idxs):
-            raise ValueError(f"{len(idxs)} scenes for {n_lanes} lanes")
-        lane_ids = [idxs[j % len(idxs)] for j in range(n_lanes)]
-        d_dim = datas[idxs[0]].shape[1]
-        data = np.zeros((n_lanes, n_pad, d_dim), np.float32)
-        mask = np.zeros((n_lanes, n_pad), bool)
-        wts = np.zeros((n_lanes, n_pad), np.float32)
-        nv = np.zeros((n_lanes,), np.int64)
-        th = np.zeros((n_lanes,), np.float32)
-        gd = (None if graph_datas is None else
-              np.zeros((n_lanes, n_pad, graph_datas[idxs[0]].shape[1]), np.float32))
-        for j, i in enumerate(lane_ids):
-            n = datas[i].shape[0]
-            data[j, :n] = datas[i]
-            mask[j, :n] = True
-            wts[j, :n] = (1.0 if weights_list is None or weights_list[i] is None
-                          else np.asarray(weights_list[i], np.float32).reshape(-1)[:n])
-            nv[j] = n
-            th[j] = th_vec[i]
-            if gd is not None:
-                gd[j, :n] = graph_datas[i]
+        results: list = [None] * n_scenes
+        for n_pad in sorted(buckets):
+            idxs = buckets[n_pad]
+            # Lanes cover the scenes and divide over the mesh's scenes axis
+            # (both powers of two, so max() suffices), as in the JAX package.
+            n_lanes = int(lanes) if lanes else max(_next_pow2(len(idxs)),
+                                                   _next_pow2(n_scene_axis))
+            if n_lanes < len(idxs):
+                raise ValueError(f"{len(idxs)} scenes for {n_lanes} lanes")
+            # rows launched, and those of real scenes (filler lanes left out)
+            with profiling.span("progx.inputs", rows=n_lanes * n_restarts,
+                                real_rows=len(idxs) * n_restarts):
+                lane_ids = [idxs[j % len(idxs)] for j in range(n_lanes)]
+                d_dim = datas[idxs[0]].shape[1]
+                data = np.zeros((n_lanes, n_pad, d_dim), np.float32)
+                mask = np.zeros((n_lanes, n_pad), bool)
+                wts = np.zeros((n_lanes, n_pad), np.float32)
+                nv = np.zeros((n_lanes,), np.int64)
+                th = np.zeros((n_lanes,), np.float32)
+                gd = (None if graph_datas is None else
+                      np.zeros((n_lanes, n_pad, graph_datas[idxs[0]].shape[1]), np.float32))
+                for j, i in enumerate(lane_ids):
+                    n = datas[i].shape[0]
+                    data[j, :n] = datas[i]
+                    mask[j, :n] = True
+                    wts[j, :n] = (1.0 if weights_list is None or weights_list[i] is None
+                                  else np.asarray(weights_list[i], np.float32).reshape(-1)[:n])
+                    nv[j] = n
+                    th[j] = th_vec[i]
+                    if gd is not None:
+                        gd[j, :n] = graph_datas[i]
 
-        def tile(a):
-            t = torch.from_numpy(np.concatenate([a] * n_restarts))
-            return t if mesh is not None else t.to(dev)  # a shard goes to its device
+                def tile(a):
+                    t = torch.from_numpy(np.concatenate([a] * n_restarts))
+                    return t if mesh is not None else t.to(dev)  # a shard goes to its device
 
-        if keys is None:
-            row_k = row_keys(random_seed, n_pad, lane_ids * n_restarts,
-                             np.repeat(np.arange(n_restarts), n_lanes), dev)
-        else:
-            row_k = torch.as_tensor(keys).to(dev)
-        row_params = params._replace(n_valid=np.tile(nv, n_restarts),
-                                     threshold=np.tile(th, n_restarts))
-        row_args = (tile(data), tile(mask), tile(wts))
-        row_graph = None if gd is None else tile(gd)
-        if mesh is None:
-            res = engine.fit_rows(family, cfg, row_params, *row_args, keys=row_k,
-                                  graph_data=row_graph)
-        else:
-            res = sharding.fit_rows_sharded(family, cfg, row_params, *row_args, row_k,
-                                            mesh, graph_data=row_graph)
-        energy = res.energy.cpu().numpy().reshape(n_restarts, n_lanes)
-        nmod = res.n_models.cpu().numpy().reshape(n_restarts, n_lanes)
-        for j, i in enumerate(lane_ids[:len(idxs)]):
-            r = engine.select_restart(energy[:, j],
-                                      cfg.restart_rule if n_restarts > 1 else "energy",
-                                      nmod[:, j])
-            results[i] = engine.compact_result(
-                engine.row_result(res, r * n_lanes + j), int(nv[j]))
-        if do_logging:
-            print(f"[progressivex_tpu_torch.batch] {family_name} n_pad={n_pad}: "
-                  f"{len(idxs)} scenes ({n_lanes} lanes x {n_restarts} restarts"
-                  f"{'' if mesh is None else f', {mesh}'})", file=sys.stderr)
+                if keys is None:
+                    row_k = row_keys(random_seed, n_pad, lane_ids * n_restarts,
+                                     np.repeat(np.arange(n_restarts), n_lanes), dev)
+                else:
+                    row_k = torch.as_tensor(keys).to(dev)
+                row_params = params._replace(n_valid=np.tile(nv, n_restarts),
+                                             threshold=np.tile(th, n_restarts))
+                row_args = (tile(data), tile(mask), tile(wts))
+                row_graph = None if gd is None else tile(gd)
+            if mesh is None:
+                res = engine.fit_rows(family, cfg, row_params, *row_args, keys=row_k,
+                                      graph_data=row_graph)
+            else:
+                res = sharding.fit_rows_sharded(family, cfg, row_params, *row_args, row_k,
+                                                mesh, graph_data=row_graph)
+            with profiling.span("progx.results"):
+                energy = res.energy.cpu().numpy().reshape(n_restarts, n_lanes)
+                nmod = res.n_models.cpu().numpy().reshape(n_restarts, n_lanes)
+                for j, i in enumerate(lane_ids[:len(idxs)]):
+                    r = engine.select_restart(energy[:, j],
+                                              cfg.restart_rule if n_restarts > 1 else "energy",
+                                              nmod[:, j])
+                    results[i] = engine.compact_result(
+                        engine.row_result(res, r * n_lanes + j), int(nv[j]))
+                if do_logging:
+                    print(f"[progressivex_tpu_torch.batch] {family_name} n_pad={n_pad}: "
+                          f"{len(idxs)} scenes ({n_lanes} lanes x {n_restarts} restarts"
+                          f"{'' if mesh is None else f', {mesh}'})", file=sys.stderr)
     return results
 
 

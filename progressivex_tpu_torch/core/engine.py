@@ -89,6 +89,7 @@ from progressivex_tpu_torch.core.config import (EngineConfig, RuntimeParams, per
                                                 rows_params, truncated_sq_threshold)
 from progressivex_tpu_torch.core.pearl import (_top_k, merge_instances, pearl_run,
                                                split_instances)
+from progressivex_tpu_torch.io import profiling
 from progressivex_tpu_torch.models.base import ModelFamily
 from progressivex_tpu_torch.ops import prng
 from progressivex_tpu_torch.ops.knn import grid_graph, knn_graph
@@ -763,7 +764,15 @@ def fit_rows(family: ModelFamily, cfg: EngineConfig, params: RuntimeParams, data
     counterpart of the JAX package's compiled fit), cached by `cache`
     ("rows", or "fit" for `fit`'s calls) under the fit's key; a fit whose
     replicas sit on other devices, a fit inside `graphs.eager()` and a
-    fit on the CPU run the same stages eagerly."""
+    fit on the CPU run the same stages eagerly, all inside one `progx.fit`
+    span (io/profiling.py)."""
+    with profiling.span("progx.fit"):
+        return _fit_rows(family, cfg, params, data, point_mask, point_weights, keys,
+                         presampled, graph_data, hyp_devices, cache)
+
+
+def _fit_rows(family, cfg, params, data, point_mask, point_weights, keys, presampled,
+              graph_data, hyp_devices, cache) -> FitResult:
     from progressivex_tpu_torch.core import graphs
 
     _check_slice(cfg)
@@ -890,10 +899,11 @@ def fit(family: ModelFamily, cfg: EngineConfig, params: RuntimeParams, data,
                    keys=keys, presampled=presampled,
                    graph_data=None if graph_data is None else rows(graph_data),
                    cache="fit")
-    energies = res.energy.tolist()  # one read for every restart
-    best = select_restart(energies, cfg.restart_rule, res.n_models.tolist())
-    return row_result(res, best)._replace(restart=best,
-                                          restart_energies=tuple(energies))
+    with profiling.span("progx.results"):
+        energies = res.energy.tolist()  # one read for every restart
+        best = select_restart(energies, cfg.restart_rule, res.n_models.tolist())
+        return row_result(res, best)._replace(restart=best,
+                                              restart_energies=tuple(energies))
 
 
 # restart_rule "energy+<L>k": a selection-time label cost L per instance on

@@ -49,6 +49,14 @@ at a time in the process.
 `eager()` runs the fits inside it eagerly on the card: the phase timing
 of io/profiling.py needs the per-operation scopes that a replay does not
 have.
+
+Spans (io/profiling.py): `progx.replay.<stage>` around each
+`graph.replay()` (with its device interval when recorded), and `progx.read.any_pearl`,
+`progx.read.all_done` and `progx.read.progress` around the host reads
+between replays. With no recording and no profiler on, each is a shared
+no-op after two flag checks (about 1 us a `with` block on the CPU): a
+fit of ten rounds opens about 45 spans in all, two replays and two
+reads a round.
 """
 
 from __future__ import annotations
@@ -63,6 +71,7 @@ import torch
 
 from progressivex_tpu_torch._device import device_guard
 from progressivex_tpu_torch.core import engine
+from progressivex_tpu_torch.io import profiling
 from progressivex_tpu_torch.kernels import scoring
 
 _SIZES = {"fit": 64, "rows": 32}
@@ -170,7 +179,8 @@ class _Graphs:
         if name not in self.graphs:
             self._capture(name, fn, outs)
         graph, tally = self.graphs[name]
-        graph.replay()
+        with profiling.replay(f"progx.replay.{name}"):
+            graph.replay()
         scoring.add_counts(tally)
         return self.outs[name]
 
@@ -265,14 +275,18 @@ class _Graphs:
         for _ in range(cfg.max_rounds):
             prop = self.stage("propose",
                               lambda: engine.round_propose(*moves, propose(), carry))
-            pearl = bool(prop.any_pearl)
+            with profiling.span("progx.read.any_pearl"):
+                pearl = bool(prop.any_pearl)
             _, progress, all_done = self.stage(
                 f"update{int(pearl)}",
                 lambda pearl=pearl: engine.round_update(*moves, carry, prop, pearl),
                 update_outs)
             if cfg.live_progress:
-                engine._emit_progress(*progress)
-            if bool(all_done):
+                with profiling.span("progx.read.progress"):
+                    engine._emit_progress(*progress)
+            with profiling.span("progx.read.all_done"):
+                done = bool(all_done)
+            if done:
                 break
         return _map(torch.clone, self.stage(
             "finish", lambda: engine.finish(*moves, prep.rank, carry)))
