@@ -17,7 +17,10 @@ Phases, each of which raises on failure:
      the same draw on the CPU, element for element, and the threefry
      kernel against its plain version bit for bit at every launch shape
      those draws gave it and at the pass F gumbel shape [64 x 6 x 512, 48],
-     timed beside its bound at each path's largest launch;
+     timed beside its bound at each path's largest launch; then the
+     smallest-eigenvector kernel ("2 eigvec", `phase_eigvec`) against its
+     plain version at the cells' batch shapes and on degenerate matrices,
+     timed beside its bound, and one launch of it captured and replayed;
   3. drives the ported paths, each with the launch counts set to 0 just
      before it and read just after: findHomographies under the
      AdelaideRMF-H protocol and findTwoViewMotions under the AdelaideRMF-F
@@ -25,7 +28,7 @@ Phases, each of which raises on failure:
      findLines on the synthetic 3180-point lines scene, findVanishingPoints
      on the synthetic 216-segment VP scene, and find6DPoses on the bundled
      T-LESS scene at seeds 0, 1 and 2 (these three reach no kernel in the
-     JAX package and launch none here); checks each scene's
+     JAX package and launch no scoring kernel here); checks each scene's
      misclassification against the JAX package's, and T-LESS's mean pose
      errors against tests/test_pose6d.py's anchors or the JAX package's
      errors at the same seeds on the card, whichever is larger; then
@@ -33,7 +36,9 @@ Phases, each of which raises on failure:
      (tests/test_gauntlet.py: two motions at seeds 0-2, three motions at
      seed 1, three restarts), scored by the fundamental kernel, against
      the gauntlet's gates, beside the JAX package's CPU ME; every fit
-     draws its samples through the threefry kernel, which must have run;
+     draws its samples through the threefry kernel, which must have run,
+     and every H, F, E, VP and pose fit solves its weighted refits through
+     the eigvec_psd kernel, which must have run;
   4. fits one scene of the H, F, line, VP and essential paths on the card
      and on the CPU and compares them;
   5. drives the batched front ends (findHomographiesBatched,
@@ -1024,6 +1029,183 @@ def _threefry_case(torch, dev, shape, label, rng, timed):
     return case
 
 
+# The batch shapes of the smallest-eigenvector kernel (kernels/linalg.py)
+# in the benchmark's cells, n = 9 unless given: a single H fit's refits
+# [1 x 20] and [4 x 10], F's rank-2 step [4 x 10] at n = 3, the pass
+# cells' rows [32 | 128 x 8]; and PnP's DLT at n = 12.
+EIGVEC_SHAPES = (((1, 20), 9), ((4, 10), 9), ((4, 10), 3), ((32, 8), 9), ((128, 8), 9),
+                 ((4, 10), 12))
+EIGVEC_ITERS = 6
+# The kernel against the plain version on the same CUDA matrices: both
+# unit vectors from one start and one iteration, compared entry by entry;
+# the trace and the squared norms are summed in another order
+# (tests/test_torch_eigvec_cuda.py's ATOL).
+EIGVEC_ATOL = 2e-5
+
+
+def _eigvec_ops(n, iters):
+    """Floating-point operations of one matrix in csrc/eigvec_psd.cu: the
+    shift (trace n + 1, shift 2, Ms 2 n^2); each of the n pivot steps (the
+    column's |a| - used * 1e18 3n, the argmax n, the one-hot pivot row
+    2 n^2, the guard 2, the division n, the factors 2n, the update 5 n^2,
+    used n); each iteration's replay (n steps of the one-hot sum 2n, the
+    division 1 and the update 6n; the permutation 2 n^2; the norm 2n + 2;
+    the division n)."""
+    return (2 * n * n + n + 3 + n * (7 * n * n + 8 * n + 2)
+            + iters * (n * (8 * n + 1) + 2 * n * n + 3 * n + 2))
+
+
+def _eigvec_bound(batch, n, iters):
+    """Least time of one eigvec_psd launch on an H100: its operations over
+    the f32 peak against its bytes (n^2 floats read, n written a matrix)
+    over the HBM rate. Both lie far below the launch floor: the kernel is
+    bound by the latency of its dependent pivot steps."""
+    t_ops = batch * _eigvec_ops(n, iters) / PEAK_F32_FLOP_S * 1e3
+    t_bytes = batch * (n * n + n) * 4 / PEAK_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _eigvec_grams(torch, shape, n, rng):
+    """Normal matrices X^T X of 3n rows a matrix, float32: one pixel-scale
+    row each, and half of them with a near null vector (the last column a
+    mix of the others up to 1e-4), as the weighted DLT's rows give."""
+    X = rng.normal(size=(*shape, 3 * n, n))
+    X[..., 0, :] *= 1e3
+    near = rng.random(shape) < 0.5
+    mix = X[..., :-1] @ rng.normal(size=n - 1) + 1e-4 * rng.normal(size=(*shape, 3 * n))
+    X[..., -1] = np.where(near[..., None], mix, X[..., -1])
+    return torch.from_numpy(np.einsum("...ki,...kj->...ij", X, X).astype(np.float32))
+
+
+def _eigvec_compare(torch, got, want):
+    """(non-finite entries where the plain version's are, max abs error
+    over the finite ones)."""
+    fin = torch.isfinite(want)
+    err = (got - want).abs()[fin]
+    return (torch.equal(torch.isfinite(got), fin),
+            float(err.max()) if err.numel() else 0.0)
+
+
+def phase_eigvec(torch, dev):
+    """The smallest-eigenvector kernel against its plain version on the
+    same CUDA matrices at EIGVEC_SHAPES, each timed (the C launch alone by
+    graph replay, the plain version the same way, the wrapper on the host)
+    beside its bound and the launch floor; then degenerate matrices at each
+    n (rank 1, zero, a zero row and column, constant, one inf, -inf and
+    NaN entry): non-finite exactly where the plain version is; then one
+    launch captured in a CUDA graph, replayed bit for bit, its tally one
+    launch of its matrices."""
+    from progressivex_tpu_torch.kernels import linalg as kl
+    from progressivex_tpu_torch.kernels import scoring as ks
+
+    rng = np.random.default_rng(0)
+    cases, failures = [], []
+    floor = torch.zeros(1, device=dev)
+    for shape, n in EIGVEC_SHAPES:
+        M = _eigvec_grams(torch, shape, n, rng).to(dev)
+        batch = M.numel() // (n * n)
+        got = kl.smallest_eigvec_psd_cuda(M, EIGVEC_ITERS)
+        want = kl.smallest_eigvec_psd_plain(M, EIGVEC_ITERS)
+        torch.cuda.synchronize()
+        finite_equal, err = _eigvec_compare(torch, got, want)
+        kernel = kl._kernel()
+        out = torch.empty(batch, n, device=dev)
+
+        def launch(M=M, batch=batch, n=n, out=out):
+            e = kernel(M.data_ptr(), batch, n, EIGVEC_ITERS, out.data_ptr(),
+                       torch.cuda.current_stream().cuda_stream)
+            if e:
+                raise RuntimeError(f"eigvec_psd: CUDA error {e}")
+
+        bound, bound_by = _eigvec_bound(batch, n, EIGVEC_ITERS)
+        case = {"kernel": "eigvec_psd", "shape": [*shape, n, n], "matrices": batch,
+                "finite_equal": finite_equal, "max_abs_err": err,
+                "ms": _device_ms(launch), "launch_floor_ms": _device_ms(floor.zero_),
+                "plain_ms": _device_ms(lambda M=M: kl.smallest_eigvec_psd_plain(
+                    M, EIGVEC_ITERS)),
+                "wrapper_ms": _host_ms(lambda M=M: kl.smallest_eigvec_psd_cuda(
+                    M, EIGVEC_ITERS)),
+                "bound_ms": bound, "bound_by": bound_by}
+        print("kernel case", json.dumps(case), flush=True)
+        cases.append(case)
+        if not finite_equal or err > EIGVEC_ATOL:
+            failures.append(f"eigvec_psd at {case['shape']}: finite where the plain "
+                            f"version is {finite_equal}, max abs error {err}")
+    for n in kl.SIZES:
+        M = _eigvec_grams(torch, (10,), n, rng)
+        low = torch.from_numpy(rng.normal(size=(n, 1)).astype(np.float32))
+        M[0] = low @ low.T
+        M[1] = 0.0
+        M[2, :, 0] = 0.0
+        M[2, 0, :] = 0.0
+        M[3] = 1.0
+        M[4, 1, 2] = float("inf")
+        M[5, n - 1, n - 1] = -float("inf")
+        M[6, 0, 1] = float("nan")
+        M = M.to(dev)
+        got = kl.smallest_eigvec_psd_cuda(M)
+        finite_equal, err = _eigvec_compare(torch, got, kl.smallest_eigvec_psd_plain(M))
+        row = {"kernel": "eigvec_psd", "degenerate": n, "finite_equal": finite_equal,
+               "non_finite_matrices": int((~torch.isfinite(got).all(-1)).sum()),
+               "max_abs_err": err}
+        print("kernel degenerate", json.dumps(row), flush=True)
+        cases.append(row)
+        if not finite_equal or err > EIGVEC_ATOL or row["non_finite_matrices"] != 3:
+            failures.append(f"eigvec_psd degenerate n = {n}: {row}")
+    M = _eigvec_grams(torch, (4, 10), 9, rng).to(dev)
+    direct = kl.smallest_eigvec_psd(M)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), ks.recording():
+        kl.smallest_eigvec_psd(M)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with ks.recording() as tally, torch.cuda.stream(side):
+        graph.capture_begin(capture_error_mode="thread_local")
+        out = kl.smallest_eigvec_psd(M)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    out.fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    captured = {"kernel": "eigvec_psd", "captured": [4, 10, 9, 9],
+                "bit_equal": torch.equal(out.view(torch.int32), direct.view(torch.int32)),
+                "tally": list(tally)}
+    print("kernel captured launch", json.dumps(captured), flush=True)
+    if not captured["bit_equal"] or tally != [("eigvec_psd", 40)]:
+        failures.append(f"eigvec_psd captured launch: {captured}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return cases, captured
+
+
+def _eigvec_line(eigvec_phase, results):
+    """The eigvec_psd kernel's entry of the {"kernels": ...} line: its
+    launches in phase 3's timed fits, its time beside its bound at the
+    single H fit's [1 x 20, 9, 9], and every timed shape."""
+    cases, captured = eigvec_phase
+    timed = [c for c in cases if "ms" in c]
+    main_case = next(c for c in timed if c["shape"] == [1, 20, 9, 9])
+    return {
+        "name": "eigvec_psd", "route": "cuda",
+        "source": "progressivex_tpu_torch/csrc/eigvec_psd.cu",
+        "replaces": "progressivex_tpu/ops/linalg.py:405",
+        "replaces_note": "smallest_eigvec_psd, lowered by XLA inside the compiled fit; "
+                         "no Pallas kernel",
+        "launches": sum(r.get("eigvec_launches", 0) for p in results.values()
+                        for r in p.values()),
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
+        "library_ms": None, "shape": main_case["shape"],
+        "wrapper_ms": main_case["wrapper_ms"],
+        "launch_floor_ms": main_case["launch_floor_ms"],
+        "captured_launch_bit_equal": captured["bit_equal"],
+        "timed": [{k: c[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                      "launch_floor_ms", "max_abs_err")} for c in timed],
+    }
+
+
 def _draw_paths(torch):
     """(label, call) of phase 2's draws: phase 10's paths (the single-scene
     paths of phase 3, phase 5's batched H and F, the dataset pass's H 2304
@@ -1148,6 +1330,7 @@ def phase_main_path(torch, problem):
                "n_models": models.shape[0] // 3, "launches": launches[kernel],
                "other_launches": {k: v for k, v in launches.items() if k != kernel},
                "threefry_launches": _threefry_launches(scene),
+               "eigvec_launches": _eigvec_launches(scene),
                "restart": stats.restart, "restart_energies": stats.restart_energies}
         print("main path", json.dumps(res), flush=True)
         if launches[kernel] <= 0:
@@ -1327,10 +1510,11 @@ def _new_path(problem):
 
 
 def _zero_launches():
-    from progressivex_tpu_torch.kernels import threefry
+    from progressivex_tpu_torch.kernels import linalg, threefry
     from progressivex_tpu_torch.kernels.scoring import LAUNCHES
 
-    for counts in (LAUNCHES, threefry.LAUNCHES, threefry.KEYS):
+    for counts in (LAUNCHES, threefry.LAUNCHES, threefry.KEYS, linalg.LAUNCHES,
+                   linalg.MATRICES):
         for k in counts:
             counts[k] = 0
 
@@ -1343,6 +1527,18 @@ def _threefry_launches(label):
     n = LAUNCHES["threefry"]
     if n <= 0:
         raise AssertionError(f"{label}: threefry never launched")
+    return n
+
+
+def _eigvec_launches(label, required=True):
+    """eigvec_psd's launches since `_zero_launches`: every weighted refit
+    of the homography, fundamental, essential, vanishing-point and PnP
+    paths solves through it, so such a path without one fails."""
+    from progressivex_tpu_torch.kernels.linalg import LAUNCHES
+
+    n = LAUNCHES["eigvec_psd"]
+    if required and n <= 0:
+        raise AssertionError(f"{label}: eigvec_psd never launched")
     return n
 
 
@@ -1419,7 +1615,8 @@ def phase_new_path(torch, problem):
            "me": float(misclassification(labels, gt)), "jax_cpu_me": jax_me,
            "wall_s": wall, "n_models": _n_models(problem, models),
            "rounds": stats.rounds_run, "launches": _no_launches(name),
-           "threefry_launches": _threefry_launches(name)}
+           "threefry_launches": _threefry_launches(name),
+           "eigvec_launches": _eigvec_launches(name, problem == "V")}
     print("main path", json.dumps(res), flush=True)
     _check_outputs(problem, name, models, labels, len(gt))
     if res["me"] > jax_me + ME_SLACK:
@@ -1454,7 +1651,8 @@ def phase_tless(torch):
                "pose_errors": errs, "restart": stats.restart,
                "restart_energies": stats.restart_energies,
                "launches": _no_launches("tless"),
-               "threefry_launches": _threefry_launches("tless")}
+               "threefry_launches": _threefry_launches("tless"),
+               "eigvec_launches": _eigvec_launches("tless")}
         print("main path", json.dumps(res), flush=True)
         if res["n_models"] < 2:
             failures.append(f"tless seed {seed}: {res['n_models']} instances")
@@ -1635,6 +1833,7 @@ def phase_essential(torch):
                "other_launches": {n: v for n, v in launches.items()
                                   if n != "score_fundamental"},
                "threefry_launches": _threefry_launches(name),
+               "eigvec_launches": _eigvec_launches(name),
                "restart": stats.restart, "restart_energies": stats.restart_energies,
                "gate": "printed only" if gate is None else gate}
         print("main path", json.dumps(res), flush=True)
@@ -2564,7 +2763,8 @@ def phase_compiled_fit(torch):
     capture + replay) and warm three times. Every FitResult of the graph
     form's runs (descriptors, labels, energy, round log, samples drawn,
     models, every field) and the kernels' launch counts (the scoring
-    kernels' LAUNCHES and ROWS, threefry's launches and keys) must equal
+    kernels' LAUNCHES and ROWS, threefry's launches and keys, eigvec_psd's
+    launches and matrices) must equal
     the eager run's bit for bit. One more warm run under
     torch.cuda.set_sync_debug_mode("warn") counts the synchronizations:
     at most two a round, at the round loop's reads in core/graphs.py, and
@@ -2585,7 +2785,7 @@ def phase_compiled_fit(torch):
     from progressivex_tpu_torch.core import engine, graphs
     from progressivex_tpu_torch.io.data import load_corr_scene
     from progressivex_tpu_torch.io.profiling import device_operations
-    from progressivex_tpu_torch.kernels import threefry
+    from progressivex_tpu_torch.kernels import linalg, threefry
     from progressivex_tpu_torch.kernels.scoring import LAUNCHES, ROWS
 
     def run(call):
@@ -2603,8 +2803,9 @@ def phase_compiled_fit(torch):
         finally:
             undo()
         passes = sum(int(r.rounds_run.max()) for r in seen)
-        return (wall, [_fit_fields(r) for r in seen], {**LAUNCHES, **threefry.LAUNCHES},
-                {**ROWS, **threefry.KEYS}, passes)
+        return (wall, [_fit_fields(r) for r in seen],
+                {**LAUNCHES, **threefry.LAUNCHES, **linalg.LAUNCHES},
+                {**ROWS, **threefry.KEYS, **linalg.MATRICES}, passes)
 
     failures, table = [], []
     total = {}
@@ -2792,6 +2993,7 @@ def main():
     _timed("1 synth data", phase_synth_data)
     kernel_phase = _timed("2 kernels", phase_kernel, torch, dev)
     draw_phase = _timed("2 draws", phase_draws, torch, dev)
+    eigvec_phase = _timed("2 eigvec", phase_eigvec, torch, dev)
     results = {p: _timed(f"3 {p}", phase_main_path, torch, p) for p in ("H", "F")}
     new = {p: _timed(f"3 {p}", phase_new_path, torch, p) for p in ("L", "V")}
     _timed("3 P", phase_tless, torch)
@@ -2847,6 +3049,7 @@ def main():
         k["captured_launch_bit_equal"] = all(captured[k["name"]]["bit_equal"])
     kernels.append(_threefry_line(draw_phase, {**results, "L": {"lines-0": new["L"]},
                                                "V": {"vp-0": new["V"]}}))
+    kernels.append(_eigvec_line(eigvec_phase, {**results, "V": {"vp-0": new["V"]}}))
     for k in kernels:
         k["launches_compiled_fit"] = compiled["launches"][k["name"]]
     print("bench", json.dumps(bench), flush=True)

@@ -1,0 +1,107 @@
+"""The smallest eigenvector of small symmetric PSD matrices: the CUDA
+kernel (csrc/eigvec_psd.cu) and its plain torch version.
+
+`smallest_eigvec_psd(M [..., n, n], iters)` returns [..., n]: shifted
+inverse iteration, `iters` solves by the unrolled Gauss-Jordan of
+ops/linalg.py from the start vector (1, ..., n) / |(1, ..., n)|, each
+solution over its norm. ops/linalg.smallest_eigvec_psd, which every
+weighted refit calls, routes here. The JAX package leaves the solver to
+XLA (progressivex_tpu/ops/linalg.py:405); the plain version launches
+about 1,460 operations a call at n = 9, the kernel one.
+
+Dispatch: a CPU tensor takes the plain version, of any type and size; a
+CUDA tensor launches the kernel or raises (`_check`: float32,
+contiguous, square, n in SIZES). The launch goes to the matrices'
+device, on its current stream, which may be capturing a CUDA graph
+(core/graphs.py). `LAUNCHES` counts launches and `MATRICES` the matrices
+they solved, with the scoring kernels' machinery (kernels/scoring.py:
+`recording`, `add_counts`), so that a graph fit counts what the eager fit
+counts.
+
+Tolerance against the plain version on the same CUDA tensor: the kernel
+takes the trace and each squared norm in index order, torch's reductions
+in their own, so the two may differ in the last bits of those sums;
+every other operation is the plain version's, one rounding each, and a
+matrix gives a non-finite result exactly where the plain version does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from progressivex_tpu_torch._device import device_guard
+from progressivex_tpu_torch.kernels import scoring
+
+SIZES = (3, 9, 12)
+LAUNCHES = {"eigvec_psd": 0}
+MATRICES = {"eigvec_psd": 0}
+scoring.register(LAUNCHES, MATRICES)
+
+
+def _check(M):
+    """Raise ValueError unless the kernel takes M [..., n, n]."""
+    if M.dtype != torch.float32:
+        raise ValueError(f"matrices of type {M.dtype}: the kernel takes float32")
+    if M.ndim < 2 or M.shape[-1] != M.shape[-2]:
+        raise ValueError(f"matrices of shape {tuple(M.shape)}: expected [..., n, n]")
+    if M.shape[-1] not in SIZES:
+        raise ValueError(f"n = {M.shape[-1]}: the kernel takes n in {SIZES}")
+    if not M.is_contiguous():
+        raise ValueError("the kernel takes contiguous matrices")
+
+
+def smallest_eigvec_psd_plain(M, iters: int = 6):
+    """The function the kernel computes, in plain torch."""
+    from progressivex_tpu_torch.ops.linalg import _EPS, gauss_jordan_solve
+
+    n = M.shape[-1]
+    tr = torch.diagonal(M, dim1=-2, dim2=-1).sum(-1) / n
+    shift = torch.clamp(1e-6 * tr, min=1e-12)
+    Ms = M + shift[..., None, None] * torch.eye(n, dtype=M.dtype, device=M.device)
+    v = torch.arange(1, n + 1, dtype=M.dtype, device=M.device)
+    v = (v / torch.linalg.vector_norm(v)).expand(*M.shape[:-2], n)
+    for _ in range(iters):
+        v = gauss_jordan_solve(Ms, v[..., None])[..., 0]
+        v = v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True),
+                            min=_EPS)
+    return v
+
+
+def _kernel():
+    from progressivex_tpu_torch.kernels import _build
+
+    fn = _build.load("eigvec_psd").eigvec_psd
+    if fn.argtypes is None:
+        vp = ctypes.c_void_p
+        fn.restype = ctypes.c_int  # before argtypes, which another thread tests
+        fn.argtypes = [vp, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, vp, vp]
+    return fn
+
+
+def smallest_eigvec_psd_cuda(M, iters: int = 6):
+    """Launch csrc/eigvec_psd.cu's kernel on CUDA matrices and count it."""
+    _check(M)
+    dev = M.device
+    n = M.shape[-1]
+    out = torch.empty(M.shape[:-1], dtype=torch.float32, device=dev)
+    batch = out.numel() // n
+    if batch:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with device_guard(dev), torch.profiler.record_function("eigvec_psd"):
+            err = _kernel()(M.data_ptr(), batch, n, int(iters), out.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"eigvec_psd launch failed: CUDA error {err}")
+        scoring._count("eigvec_psd", batch)
+    return out
+
+
+def smallest_eigvec_psd(M, iters: int = 6):
+    """The plain version for CPU matrices, the CUDA kernel for CUDA
+    matrices."""
+    if M.device.type == "cpu":
+        return smallest_eigvec_psd_plain(M, iters)
+    if M.device.type != "cuda":
+        raise ValueError(f"no eigvec_psd kernel for device {M.device}")
+    return smallest_eigvec_psd_cuda(M, iters)

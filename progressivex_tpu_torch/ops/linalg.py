@@ -27,6 +27,8 @@ import math
 
 import torch
 
+from progressivex_tpu_torch.kernels import linalg as klinalg
+
 _EPS = 1e-12
 _BIG = 1e18
 
@@ -298,18 +300,9 @@ def orthonormalize_rows(basis, valid):
 def smallest_eigvec_psd(M, iters: int = 6):
     """Eigenvector of the smallest eigenvalue of small symmetric PSD
     matrices M [..., n, n] by shifted inverse iteration with the unrolled
-    Gauss-Jordan solver."""
-    n = M.shape[-1]
-    tr = torch.diagonal(M, dim1=-2, dim2=-1).sum(-1) / n
-    shift = torch.clamp(1e-6 * tr, min=1e-12)
-    Ms = M + shift[..., None, None] * torch.eye(n, dtype=M.dtype, device=M.device)
-    v = torch.arange(1, n + 1, dtype=M.dtype, device=M.device)
-    v = (v / torch.linalg.vector_norm(v)).expand(*M.shape[:-2], n)
-    for _ in range(iters):
-        v = gauss_jordan_solve(Ms, v[..., None])[..., 0]
-        v = v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True),
-                            min=_EPS)
-    return v
+    Gauss-Jordan solver: on the CPU in plain torch, on the card one launch
+    of csrc/eigvec_psd.cu (kernels/linalg.py)."""
+    return klinalg.smallest_eigvec_psd(M, iters)
 
 
 def svd3(M, sweeps: int = 6):
