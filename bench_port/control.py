@@ -9,7 +9,7 @@ numbers of reference.numbers for the program's answers and for the
 control's (reference.control: the reference computed in bfloat16, put in
 the program's place on the same answers). One JSON line a seed on
 standard output; in FILE the same with the sample's answers (request,
-position in it, sum of its coordinates, models, labels), from which the
+position in it, sum of its data, models, labels), from which the
 numbers can be read again off the card. Set-up (kernels, warm-up) is paid once.
 The benchmark's own runs never run this; it needs a CUDA device.
 """
@@ -62,7 +62,7 @@ def main(argv=None) -> int:
                            if all(j is not None for j in judged) else None),
                "control": reference.numbers(low),
                "seconds": time.perf_counter() - t0,
-               "sample": [[a.request, a.position, float(a.scene.corrs.sum()),
+               "sample": [[a.request, a.position, harness.data_sum(a.scene.data),
                            np.asarray(a.models, np.float64).tolist(),
                            np.asarray(a.labels).tolist()] for a in sample]}
         line = json.dumps(row)

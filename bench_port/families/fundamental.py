@@ -1,6 +1,6 @@
 """Fundamental-matrix family (multi-body two-view motion): the entry
-points the harness drives and the plain reference of the residual that
-judges their answers.
+points the harness drives, its scene generator, its scoring kernel and
+the plain reference of the residual that judges their answers.
 
 The residual is the squared Sampson distance of x2^T F x1 = 0 in pixels,
 (x2^T F x1)^2 / ((F x1)_0^2 + (F x1)_1^2 + (F^T x2)_0^2 + (F^T x2)_1^2)
@@ -11,7 +11,9 @@ the reference's own least-squares model of a set of points, `model_distance`
 how far two models of one set lie apart.
 """
 
-from bench_port.families import normalized, null_vector
+from bench_port import synth
+from bench_port.families import (normalized, null_vector, row_points, rows_batched,
+                                 rows_single)
 
 ENTRY_SINGLE = "findTwoViewMotions"
 ENTRY_BATCHED = "findTwoViewMotionsBatched"
@@ -19,6 +21,16 @@ ENTRY_BATCHED = "findTwoViewMotionsBatched"
 # that the least-squares model is overdetermined.
 REFIT_MIN = 12
 KERNEL = "score_fundamental"
+# The kernel by the name the CUDA trace gives it: score_common.cuh's
+# `score_kernel`, instanced for this residual.
+KERNEL_NAMES = [["score_kernel", "SampsonR2"]]
+# Operations of the residual per (hypothesis, valid point), 34: F x1 12,
+# F^T x2 8, num 4, den 7, square, max and divide 3.
+RESIDUAL_OPS = 34
+MODEL_SHAPE = (3, 3)
+GENERATORS = {"f_scene": synth._f_scene}
+# A scene is corrs [n, 4] (x1, y1, x2, y2), float64.
+single_args, batched_args, points = rows_single, rows_batched, row_points
 
 
 def squared_residual(models, corrs):

@@ -1,5 +1,6 @@
-"""Homography family: the entry points the harness drives and the plain
-reference of the residual that judges their answers.
+"""Homography family: the entry points the harness drives, its scene
+generator, its scoring kernel and the plain reference of the residual
+that judges their answers.
 
 The residual is the squared transfer error ||H x1 - x2||^2 in pixels
 (Progressive-X's homography residual; Barath & Matas, ICCV 2019), with
@@ -10,7 +11,9 @@ reference's own least-squares model of a set of points, `model_distance`
 how far two models of one set lie apart.
 """
 
-from bench_port.families import normalized, null_vector
+from bench_port import synth
+from bench_port.families import (normalized, null_vector, row_points, rows_batched,
+                                 rows_single)
 
 ENTRY_SINGLE = "findHomographies"
 ENTRY_BATCHED = "findHomographiesBatched"
@@ -18,6 +21,17 @@ ENTRY_BATCHED = "findHomographiesBatched"
 # that the least-squares model is overdetermined.
 REFIT_MIN = 8
 KERNEL = "score_homography"
+# The kernel by the name the CUDA trace gives it: score_common.cuh's
+# `score_kernel`, instanced for this residual.
+KERNEL_NAMES = [["score_kernel", "HomographyR2"]]
+# Operations of the residual per (hypothesis, valid point), 20: projection
+# 12 (6 mul, 6 add), the |pz| test 1, transfer error 7 (2 div, 2 sub, 2
+# mul, 1 add).
+RESIDUAL_OPS = 20
+MODEL_SHAPE = (3, 3)
+GENERATORS = {"h_scene": synth._h_scene}
+# A scene is corrs [n, 4] (x1, y1, x2, y2), float64.
+single_args, batched_args, points = rows_single, rows_batched, row_points
 
 
 def squared_residual(models, corrs):

@@ -3,26 +3,39 @@
 A cell (an entry of "workloads" in BENCHMARK.json) names a configuration
 and a traffic mix. Everything particular to them is data found by name:
 
-- configs/<config>.json: the deployment: the family (families/<family>.py),
-  the scene generator of synth.py and the dataset's scene shapes
-  (`specs`), the protocol's keywords, the pad levels, the scoring work a
-  round does (`work`), what was assumed;
+- configs/<config>.json: the deployment: the family ("family": the module
+  families/<family>.py), the scene generator ("generator": a key of that
+  module's GENERATORS) and the dataset's scene shapes (`specs`), the
+  protocol's keywords, the pad levels, the scoring work a round does
+  (`work`), what was assumed;
+- families/<family>.py: everything particular to a model family (the
+  contract is in families/__init__.py): its entry points and the
+  positional arguments they take from a scene's data, its generators, the
+  shape of one model in an answer, its scoring kernel's names and
+  residual operations (or no kernel), and the plain reference of its
+  residual, refit and model distance. This module, synth.py,
+  reference.py, roofline.py and the readers take all of it from there, so
+  a new family is a new module, a configuration, a traffic mix and a
+  checks file, with entries in BENCHMARK.json;
 - traffic/<traffic>.json: how requests are made from the specs (one
   caller in a closed loop serves every mix: the next request leaves when
   the last has returned): one
   batched call of every shape `copies` times (`"entry": "batched"`), or one
   single-scene call a request over a seeded shuffled cycle of the shapes
   (`"entry": "single"`); the pool drawn in set-up, the warm-up passes, the
-  requests the traced run profiles and the answers the check judges;
+  seconds set-up goes on serving the pool once they are done
+  (`settle_seconds`, 0 when absent), the requests the traced run profiles
+  and the answers the check judges;
 - checks/<cell>.json: the numbers of reference.py the cell compares, each
   with its limit;
 - metrics/<metric>.py: one reader a per-layer metric, `read(readings)`,
   returning the value or None when it finds nothing to read.
 
 One run (`run_cell`): set-up (the program, its kernels from the build
-cache, the request pool, the warm-up passes), then a closed loop of one
-caller for `seconds` seconds that ends with the request in flight, then
-the judgment of a sample of the answers by the plain reference. The
+cache, the request pool, the warm-up passes, the settling), then a closed
+loop of one caller for `seconds` seconds that ends with the request in
+flight, then the judgment of a sample of the answers by the plain
+reference. The
 scenes are drawn from the seed and the request's index, so a seed gives
 the same inputs; every request carries its own `random_seed`.
 """
@@ -45,7 +58,7 @@ from typing import NamedTuple
 
 import numpy as np
 
-from bench_port import reference, synth, tracing
+from bench_port import families, reference, synth, tracing
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HERE = os.path.join(ROOT, "bench_port")
@@ -63,7 +76,7 @@ class Cell(NamedTuple):
 
     @property
     def family(self):
-        return importlib.import_module(f"bench_port.families.{self.config['family']}")
+        return families.load(self.config["family"])
 
 
 def _load(path):
@@ -112,8 +125,16 @@ def pad_of(n: int, levels) -> int:
 
 class Scene(NamedTuple):
     shape: int  # index into the configuration's specs
-    corrs: np.ndarray  # [n, 4] float64
+    data: object  # the scene as the family's entry points take it
     gt: np.ndarray  # [n] ground-truth labels, 0 = outlier
+
+
+def data_sum(data) -> float:
+    """The sum of every number of a scene's data (an array, or a tuple or
+    list of them): the scene's checksum in control.py's records."""
+    if isinstance(data, (tuple, list)):
+        return float(sum(data_sum(d) for d in data))
+    return float(np.sum(data))
 
 
 class Request(NamedTuple):
@@ -137,9 +158,9 @@ def make_request(cell: Cell, seed, index) -> Request:
     specs = cfg["specs"]
 
     def draw(shape, copy):
-        corrs, gt = synth.draw_scene(cfg["generator"], cfg["problem"], specs[shape],
-                                     f"{seed}/{index}/{copy}")
-        return Scene(shape, corrs, gt)
+        data, gt = synth.draw_scene(cell.family, cfg["generator"], cfg["problem"], specs[shape],
+                                    f"{seed}/{index}/{copy}")
+        return Scene(shape, data, gt)
 
     if traffic["entry"] == "batched":
         scenes = [draw(j, c) for j in range(len(specs)) for c in range(traffic["copies"])]
@@ -169,9 +190,9 @@ def warm_requests(cell: Cell, seed, p: int) -> list:
         level = pad_of(spec[1], cfg["pad_levels"])
         if level not in seen:
             seen.add(level)
-            corrs, gt = synth.draw_scene(cfg["generator"], cfg["problem"], spec,
-                                         f"{seed}/warm{p}/{j}")
-            out.append(Request(-1, [Scene(j, corrs, gt)],
+            data, gt = synth.draw_scene(cell.family, cfg["generator"], cfg["problem"], spec,
+                                        f"{seed}/warm{p}/{j}")
+            out.append(Request(-1, [Scene(j, data, gt)],
                                _crc(f"{seed}/warm{p}/{j}") & 0x7FFFFFFF))
     return out
 
@@ -182,7 +203,7 @@ def warm_requests(cell: Cell, seed, p: int) -> list:
 class Call(NamedTuple):
     label: str
     scenes: list  # indices into the request's scenes
-    run: object  # () -> list of (models [3K, 3], labels [n]) and rounds (or None)
+    run: object  # () -> list of (models [rows K, cols], labels [n]) and rounds (or None)
     groups: list  # [(pad, n_valid of each real row)], for the roofline
 
 
@@ -217,7 +238,8 @@ def calls_of(cell: Cell, program, request: Request, device) -> list:
 
         def run_single(s=s):
             fn = getattr(program, family.ENTRY_SINGLE)
-            models, labels, stats = fn(s.corrs, **_protocol(cell, split_of(s)),
+            models, labels, stats = fn(*family.single_args(s.data),
+                                       **_protocol(cell, split_of(s)),
                                        random_seed=request.random_seed,
                                        with_statistics=True, device=device)
             return [(models, labels)], stats.rounds_run
@@ -231,7 +253,8 @@ def calls_of(cell: Cell, program, request: Request, device) -> list:
 
         def run_batched(idx=idx, split=split):
             fn = getattr(program, family.ENTRY_BATCHED)
-            res = fn([scenes[i].corrs for i in idx], **_protocol(cell, split),
+            res = fn(*family.batched_args([scenes[i].data for i in idx]),
+                     **_protocol(cell, split),
                      random_seed=request.random_seed, device=device)
             return list(res), None
 
@@ -343,6 +366,22 @@ class Pool:
     def get(self, i):
         base = self.items[i % len(self.items)]
         return base._replace(index=i, random_seed=_crc(f"{self.seed}/{i}/random_seed") & 0x7FFFFFFF)
+
+
+def settle(cell, program, pool, device, seconds: float):
+    """Serve the pool's requests in order, with random_seeds of their own,
+    until `seconds` have passed: the card under the window's own load
+    before the window opens. On an H100 a single-scene F fit ran 16-21%
+    slower in its first 0 to 17 s of sustained load, which the warm-up
+    passes, loading the card lightly, do not reach; the window would time
+    that. Returns the requests served and the scenes whose calls failed."""
+    t0, i, failed = time.perf_counter(), 0, 0
+    while time.perf_counter() - t0 < seconds:
+        base = pool.items[i % len(pool.items)]
+        request = base._replace(index=-1, random_seed=_crc(f"{pool.seed}/settle/{i}") & 0x7FFFFFFF)
+        failed += _serve(cell, program, request, device, False)[1]
+        i += 1
+    return i, failed
 
 
 class _HostReadings:
@@ -459,7 +498,7 @@ def check_sample(cell, window, seed) -> list:
 def judge_answers(cell, answers, judge=reference.judge):
     """Each answer judged (None where malformed)."""
     thr = cell.config["protocol"]["threshold"]
-    return [judge(cell.family, a.scene.corrs, a.scene.gt, a.models, a.labels, thr)
+    return [judge(cell.family, a.scene.data, a.scene.gt, a.models, a.labels, thr)
             for a in answers]
 
 
@@ -537,6 +576,9 @@ def run_cell(cell, seed, seconds, trace, device, program=None, t_start=None):
     pool = Pool(cell, seed, int(traffic["pool_requests"]))
     first, built, warm_failed = warm_up(cell, program, seed, device,
                                         int(traffic["warm_passes"]))
+    settled, settle_failed = settle(cell, program, pool, device,
+                                    float(traffic.get("settle_seconds", 0)))
+    warm_failed += settle_failed
     if cuda:
         torch.cuda.synchronize(device)
     setup_s = time.perf_counter() - t_start
@@ -571,7 +613,7 @@ def run_cell(cell, seed, seconds, trace, device, program=None, t_start=None):
     result["checks"] = checks
     lines = [
         f"set-up {setup_s:.3f} s (graphs a warm-up pass {built}, {warm_failed} scenes "
-        f"failed): first calls "
+        f"failed, {settled} requests settling): first calls "
         + ", ".join(f"{k} {v:.3f} s" for k, v in first),
         f"window {window.elapsed:.3f} s: {len(window.latencies)} requests, "
         f"{len(window.answers)} answers, {window.failed} failed, {empty} without a model, "

@@ -66,18 +66,18 @@ def misclassification(pred_labels, gt_labels) -> float:
     return 1.0 - int(m[rows, cols].sum()) / len(pred)
 
 
-def implied_labels(family, models, corrs, threshold, dtype):
-    """The labeling that `models` [K, 3, 3] imply for `corrs` [n, 4]
-    without the spatial term, computed in `dtype`: the model of least
-    residual where it is under tau_t^2, else K (outlier)."""
+def implied_labels(family, models, data, n_points, threshold, dtype):
+    """The labeling that `models` [K, rows, cols] imply for the n_points
+    points of a scene's `data` without the spatial term, computed in
+    `dtype`: the model of least residual where it is under tau_t^2, else
+    K (outlier)."""
     import torch
 
-    corrs_t = torch.as_tensor(np.asarray(corrs, np.float64)).to(dtype)
     k = len(models)
     if k == 0:
-        return np.full(len(corrs_t), 0, np.int64)
+        return np.full(n_points, 0, np.int64)
     models_t = torch.as_tensor(np.asarray(models, np.float64)).to(dtype)
-    r2 = family.squared_residual(models_t, corrs_t)
+    r2 = family.squared_residual(models_t, family.points(data, dtype))
     trunc = torch.tensor((TRUNCATION * float(threshold)) ** 2, dtype=dtype)
     ratio = (r2 / trunc).to(torch.float64).numpy()
     ratio = np.where(np.isnan(ratio), np.inf, ratio)
@@ -95,22 +95,24 @@ class Judged(NamedTuple):
     n_models: int
 
 
-def _as_answer(models_flat, labels, n_points):
-    """(models [K, 3, 3] float64, labels [n] int64), or None when the answer
-    is malformed: wrong shapes, labels out of range, non-finite models."""
+def _as_answer(family, models_flat, labels, n_points):
+    """(models [K, rows, cols] float64, labels [n] int64), the family's
+    MODEL_SHAPE (rows, cols), or None when the answer is malformed: wrong
+    shapes, labels out of range, non-finite models."""
+    rows, cols = family.MODEL_SHAPE
     labels = np.asarray(labels)
     models_flat = np.asarray(models_flat, np.float64)
     if (labels.shape != (n_points,) or models_flat.ndim != 2
-            or models_flat.shape[1] != 3 or models_flat.shape[0] % 3
+            or models_flat.shape[1] != cols or models_flat.shape[0] % rows
             or not np.isfinite(models_flat).all()):
         return None
-    models = models_flat.reshape(-1, 3, 3)
+    models = models_flat.reshape(-1, rows, cols)
     if n_points and (labels.min() < 0 or labels.max() > len(models)):
         return None
     return models, labels.astype(np.int64)
 
 
-def _partition(family, models, corrs_t, labels, threshold):
+def _partition(family, models, data, labels, threshold):
     """For each model, the points that both its label and its float64
     residual give it; the labeling the models imply; and the gross share:
     points labeled to a model under which their residual lies beyond the
@@ -118,10 +120,11 @@ def _partition(family, models, corrs_t, labels, threshold):
     class and only the spatial term could have put it."""
     import torch
 
-    implied = implied_labels(family, models, corrs_t, threshold, torch.float64)
+    implied = implied_labels(family, models, data, len(labels), threshold, torch.float64)
     gross = 0.0
     if len(models):
-        r2 = family.squared_residual(torch.as_tensor(models), corrs_t).numpy()
+        r2 = family.squared_residual(torch.as_tensor(models),
+                                     family.points(data, torch.float64)).numpy()
         held = labels < len(models)
         ratio = r2[np.minimum(labels, len(models) - 1), np.arange(len(labels))]
         ratio = ratio / (TRUNCATION * float(threshold)) ** 2
@@ -129,42 +132,41 @@ def _partition(family, models, corrs_t, labels, threshold):
     return [(labels == k) & (implied == k) for k in range(len(models))], implied, gross
 
 
-def judge(family, corrs, gt, models_flat, labels, threshold):
-    """The Judged reading of one answer (models_flat [3K, 3], labels [n]
-    with K for outliers, as the entry point returns them), or None when
-    it is malformed."""
+def judge(family, data, gt, models_flat, labels, threshold):
+    """The Judged reading of one answer to the scene `data` (models_flat
+    [rows K, cols], labels [n] with K for outliers, as the entry point
+    returns them), or None when it is malformed."""
     import torch
 
-    answer = _as_answer(models_flat, labels, len(gt))
+    answer = _as_answer(family, models_flat, labels, len(gt))
     if answer is None:
         return None
     models, labels = answer
-    corrs_t = torch.as_tensor(np.asarray(corrs, np.float64))
-    parts, implied, gross = _partition(family, models, corrs_t, labels, threshold)
+    parts, implied, gross = _partition(family, models, data, labels, threshold)
     gaps = []
     for model, part in zip(models, parts):
         if part.sum() >= family.REFIT_MIN:
-            points = corrs_t[torch.as_tensor(part)]
+            points = family.points(data, torch.float64, part)
             ref = family.refit(points, torch.float64)
             gaps.append(family.model_distance(torch.as_tensor(model), ref, points))
     return Judged(misclassification(labels, gt), float(np.mean(implied != labels)), gross,
                   tuple(gaps), len(models))
 
 
-def control(family, corrs, gt, models_flat, labels, threshold):
+def control(family, data, gt, models_flat, labels, threshold):
     """The Judged reading of the control in the program's place on one
     answer: the models refitted in bfloat16 on the answer's own partition
     of the points, the points labeled by their residual in bfloat16."""
     import torch
 
-    models, labels = _as_answer(models_flat, labels, len(gt))
-    corrs_t = torch.as_tensor(np.asarray(corrs, np.float64))
-    parts = _partition(family, models, corrs_t, labels, threshold)[0]
-    low = [family.refit(corrs_t[torch.as_tensor(part)], torch.bfloat16).numpy()
+    models, labels = _as_answer(family, models_flat, labels, len(gt))
+    parts = _partition(family, models, data, labels, threshold)[0]
+    low = [family.refit(family.points(data, torch.float64, part), torch.bfloat16).numpy()
            for part in parts if part.sum() >= family.REFIT_MIN]
-    low = np.stack(low) if low else np.zeros((0, 3, 3))
-    low_labels = implied_labels(family, low, corrs_t, threshold, torch.bfloat16)
-    return judge(family, corrs, gt, low.reshape(-1, 3), low_labels, threshold)
+    low = np.stack(low) if low else np.zeros((0, *family.MODEL_SHAPE))
+    low_labels = implied_labels(family, low, data, len(gt), threshold, torch.bfloat16)
+    return judge(family, data, gt, low.reshape(-1, family.MODEL_SHAPE[1]), low_labels,
+                 threshold)
 
 
 def numbers(judged) -> dict:

@@ -1,6 +1,8 @@
 """The scoring kernels' least time on an H100: a frozen copy of
-chip_smoke.py's `RESIDUAL_OPS`, `_score_bound` and peaks, and the count
-of the launches a fit's scoring needs.
+chip_smoke.py's `_score_bound` and peaks (its `RESIDUAL_OPS` are each
+family module's own, families/*.py), and the count of the launches a
+fit's scoring needs. `family` is a family's name, as a configuration and
+the harness's traced calls give it.
 
 Peaks (NVIDIA H100 SXM data sheet, at its 700 W limit): 67 TFLOP/s in
 float32 outside the tensor cores and 3.35 TB/s of HBM. A run prints the
@@ -9,26 +11,23 @@ card's power limit beside them.
 
 from __future__ import annotations
 
+from bench_port import families
+
 PEAK_F32_FLOP_S = 67e12
 PEAK_BYTES_S = 3.35e12
-
-# Operations of each family's residual per (hypothesis, valid point).
-# Homography, 20: projection 12 (6 mul, 6 add), the |pz| test 1, transfer
-# error 7 (2 div, 2 sub, 2 mul, 1 add). Fundamental, 34: F x1 12, F^T x2
-# 8, num 4, den 7, square, max and divide 3.
-RESIDUAL_OPS = {"homography": 20, "fundamental": 34}
 
 
 def score_bound_s(b, n_valid, n_pts, magsac_levels, family):
     """Least seconds of one scoring pass of b hypotheses over rows whose
     valid points are `n_valid` (one entry a row), padded to n_pts:
     operations over the f32 peak against bytes over the HBM rate, the
-    larger. Operations per (hypothesis, valid point): the residual's
-    (RESIDUAL_OPS), x = r2 / tau_t^2 1, pref 2 (sub, max), five sums 9;
-    with m MAGSAC levels, 4 m + 1 more. Only valid points count. Bytes a
+    larger. Operations per (hypothesis, valid point): the residual's (the
+    family's RESIDUAL_OPS), x = r2 / tau_t^2 1, pref 2 (sub, max), five
+    sums 9; with m MAGSAC levels, 4 m + 1 more. Only valid points count. Bytes a
     row: 21 per point, 36 per descriptor and 16 of outputs per
     hypothesis, and 5 of the row's threshold and compound flag."""
-    flops_pair = RESIDUAL_OPS[family] + 12 + (4 * magsac_levels + 1 if magsac_levels else 0)
+    residual = families.load(family).RESIDUAL_OPS
+    flops_pair = residual + 12 + (4 * magsac_levels + 1 if magsac_levels else 0)
     flops = b * sum(n_valid) * flops_pair
     nbytes = len(n_valid) * (n_pts * 21 + b * (36 + 16) + 5)
     return max(flops / PEAK_F32_FLOP_S, nbytes / PEAK_BYTES_S)

@@ -6,7 +6,9 @@ progressivex_tpu_torch/eval/synth_adelaide.py, unchanged, and
 seed is the scene that module writes for it. The copy keeps the
 benchmark's traffic fixed while the program changes. The specs (name,
 points, structures, outlier rate of each scene) are data of each
-configuration (configs/*.json), not of this file.
+configuration (configs/*.json), not of this file, and each family module
+(families/*.py) names its generators in its GENERATORS: a new family's
+generator lives in its own module.
 
 `scene_seed` takes any seed that formats as text: the harness draws a
 request's scenes from "<run seed>/<request>/<copy>", so every scene of a
@@ -146,11 +148,6 @@ def _f_scene(rng, n, k, outlier_rate):
     return np.concatenate(rows), np.concatenate(labels)
 
 
-
-
-GENERATORS = {"h_scene": _h_scene, "f_scene": _f_scene}
-
-
 def scene_seed(problem: str, name: str, seed) -> int:
     """The generator seed of one scene: a CRC-32 of its problem, name and
     seed, stable across processes."""
@@ -158,9 +155,11 @@ def scene_seed(problem: str, name: str, seed) -> int:
     return zlib.crc32(f"{problem.upper()}/{name}/{seed}".encode())
 
 
-def draw_scene(generator: str, problem: str, spec, seed):
-    """One scene of `spec` (name, points, structures, outlier rate):
-    (corrs [n, 4] float64, labels [n] int32, 0 = outlier)."""
+def draw_scene(family, generator: str, problem: str, spec, seed):
+    """One scene of `spec` (name, points, structures, outlier rate), drawn
+    by the generator of that name in the family module's GENERATORS:
+    (data, labels [n] int32, 0 = outlier), data as the family's entry
+    points take one scene (corrs [n, 4] float64 for H and F)."""
     name, n, k, outlier_rate = spec
     rng = np.random.default_rng(scene_seed(problem, name, seed))
-    return GENERATORS[generator](rng, int(n), int(k), float(outlier_rate))
+    return family.GENERATORS[generator](rng, int(n), int(k), float(outlier_rate))

@@ -23,12 +23,14 @@ from bench_port import harness, reference  # noqa: E402
 # A few shapes of each cell, one draw each: a size the CPU fits in seconds.
 SHAPES = {"adelH-pass": ("physics", "hartley", "johnssona"),
           "adelF-pass": ("book", "breadcube"),
-          "adelH-single": ("physics", "hartley", "johnssona")}
+          "adelH-single": ("physics", "hartley", "johnssona"),
+          "adelF-single": ("book", "breadcube")}
 SEED = 2**31 + 77
 PAD_LEVELS = harness.load_cell("adelH-pass").config["pad_levels"]
 # Window seconds that serve every shape once on the CPU (a single-scene
-# fit takes about 0.6 s there; a batched request holds every shape).
-SECONDS = {"adelH-pass": 0.0, "adelF-pass": 0.0, "adelH-single": 1.5}
+# fit takes about 0.6 s there, 2 s with F's 4 restarts; a batched request
+# holds every shape).
+SECONDS = {"adelH-pass": 0.0, "adelF-pass": 0.0, "adelH-single": 1.5, "adelF-single": 3.0}
 
 
 @pytest.fixture(autouse=True)
@@ -44,7 +46,8 @@ def _few_threads():
 def small(name):
     cell = harness.load_cell(name)
     cfg = dict(cell.config, specs=[s for s in cell.config["specs"] if s[0] in SHAPES[name]])
-    traffic = dict(cell.traffic, copies=1, pool_requests=len(cfg["specs"]), warm_passes=1)
+    traffic = dict(cell.traffic, copies=1, pool_requests=len(cfg["specs"]), warm_passes=1,
+                   settle_seconds=0)
     return cell._replace(config=cfg, traffic=traffic)
 
 
@@ -130,6 +133,8 @@ FAULTS += [("adelH-single", f) for f in ("unchanged", "emptied_half", "emptied_l
                                          "altered_one")]
 FAULTS += [("adelF-pass", f) for f in ("unchanged", "half", "emptied_half", "emptied_level",
                                        "altered_all")]
+FAULTS += [("adelF-single", f) for f in ("unchanged", "emptied_half", "emptied_level",
+                                         "altered_all")]
 
 
 @pytest.mark.parametrize("name,fault", FAULTS)

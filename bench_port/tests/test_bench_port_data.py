@@ -17,7 +17,7 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, ROOT)
 
-from bench_port import harness, roofline, synth  # noqa: E402
+from bench_port import families, harness, roofline, synth  # noqa: E402
 
 BENCH = json.load(open(os.path.join(ROOT, "BENCHMARK.json")))
 CELLS = [w["name"] for w in BENCH["workloads"]]
@@ -41,7 +41,8 @@ def test_generator_copy_draws_the_port_scenes(problem):
         for spec in specs:
             rng = np.random.default_rng(port.scene_seed(problem, spec[0], seed))
             want = gen(rng, *spec[1:])
-            got = synth.draw_scene(f"{problem.lower()}_scene", problem, spec, seed)
+            family = families.load("homography" if problem == "H" else "fundamental")
+            got = synth.draw_scene(family, f"{problem.lower()}_scene", problem, spec, seed)
             np.testing.assert_array_equal(got[0], want[0])
             np.testing.assert_array_equal(got[1], want[1])
 
@@ -138,8 +139,8 @@ def test_same_seed_same_requests():
     c = harness.make_request(cell, 100, 3)
     assert a.random_seed == b.random_seed != c.random_seed
     for x, y, z in zip(a.scenes, b.scenes, c.scenes):
-        np.testing.assert_array_equal(x.corrs, y.corrs)
-        assert not np.array_equal(x.corrs, z.corrs)
+        np.testing.assert_array_equal(x.data, y.data)
+        assert not np.array_equal(x.data, z.data)
 
 
 @pytest.mark.parametrize("family,rows,b,n_pad,n_valid,m", [
