@@ -21,6 +21,10 @@ Phases, each of which raises on failure:
      smallest-eigenvector kernel ("2 eigvec", `phase_eigvec`) against its
      plain version at the cells' batch shapes and on degenerate matrices,
      timed beside its bound, and one launch of it captured and replayed;
+     then the pose refit kernel ("2 refine", `phase_refine`) against its
+     plain version at a pose fit's three launch shapes [3 x 4 | 8 | 10,
+     2304], timed beside its bound, the launch floor and the plain
+     version, and one launch of it captured and replayed;
   3. drives the ported paths, each with the launch counts set to 0 just
      before it and read just after: findHomographies under the
      AdelaideRMF-H protocol and findTwoViewMotions under the AdelaideRMF-F
@@ -38,7 +42,9 @@ Phases, each of which raises on failure:
      the gauntlet's gates, beside the JAX package's CPU ME; every fit
      draws its samples through the threefry kernel, which must have run,
      and every H, F, E, VP and pose fit solves its weighted refits through
-     the eigvec_psd kernel, which must have run;
+     the eigvec_psd kernel, which must have run, and every pose fit its
+     Gauss-Newton refits through the pnp_refine kernel, which must have
+     run;
   4. fits one scene of the H, F, line, VP and essential paths on the card
      and on the CPU and compares them;
   5. drives the batched front ends (findHomographiesBatched,
@@ -1206,6 +1212,186 @@ def _eigvec_line(eigvec_phase, results):
     }
 
 
+# The refit kernel's (kernels/pnp.py) launch shapes in a pose fit:
+# 3 restarts as rows x P = 4 (the proposals' LO), 8 (the final polishes)
+# and 10 (the PEARL rounds) instances over the cell's 2,304 padded points.
+REFINE_SHAPES = ((3, 4, 2304), (3, 8, 2304), (3, 10, 2304))
+REFINE_ITERS = 6
+# The kernel against the plain version on the same CUDA tensors: `ok`
+# equal, a returned start bit for bit, a refitted pose within these on R's
+# entries and on |t| (tests/test_torch_pnp_refine_cuda.py's R_ATOL, T_RTOL).
+REFINE_R_ATOL = 1e-4
+REFINE_T_RTOL = 1e-4
+# Floating-point operations of one point in one Gauss-Newton step of
+# csrc/pnp_refine.cu: q = R X + t 18, 1 / z 1, the residual 4, d proj /
+# d q_z 4, q - t 3, J 10, the weight factor 2, Jw 12, H's 21 entries (two
+# products and two sums each) 84, g's 6 entries 24.
+REFINE_OPS = 162
+
+
+def _refine_bound(rows, p, n, iters):
+    """Least time of one pnp_refine launch on an H100: its operations over
+    the f32 peak against its bytes (a row's points and each problem's
+    weights read once, 12 floats read and written and a byte written a
+    problem) over the HBM rate. Both lie under the launch floor: the
+    kernel is bound by its six dependent steps."""
+    t_ops = rows * p * n * iters * REFINE_OPS / PEAK_F32_FLOP_S * 1e3
+    t_bytes = (rows * n * 5 * 4 + rows * p * (n * 4 + 2 * 12 * 4 + 1)) / PEAK_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _refine_problem(torch, rows, p, n, rng):
+    """float32 (data [rows, n, 5], weights [rows, p, n], starts [rows, p,
+    12]) like a pose fit's refits: object points (mm) about 700 mm before
+    the camera seen through a pose with noise in normalized coordinates, a
+    fifth of them outliers, PEARL-like weights (1 - r^2 / tau^2 at the
+    pose, a tenth of them zero), starts off by up to 3 degrees and ~5 mm."""
+    data = np.empty((rows, n, 5))
+    weights = np.empty((rows, p, n))
+    inits = np.empty((rows, p, 12))
+
+    def rotation(angle):
+        a = rng.normal(size=3)
+        a /= np.linalg.norm(a)
+        K = np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]])
+        return np.eye(3) + np.sin(angle) * K + (1 - np.cos(angle)) * K @ K
+
+    for i in range(rows):
+        R, t = rotation(rng.uniform(0, np.pi)), np.array([0.0, 0.0, 700.0])
+        X = rng.normal(scale=40.0, size=(n, 3))
+        cam = X @ R.T + t
+        xy = cam[:, :2] / cam[:, 2:] + rng.normal(scale=1e-3, size=(n, 2))
+        out = rng.random(n) < 0.2
+        xy[out] = rng.uniform(-0.1, 0.1, size=(out.sum(), 2))
+        data[i] = np.concatenate([xy, X], 1)
+        r2 = ((xy - cam[:, :2] / cam[:, 2:]) ** 2).sum(1) / (4e-3) ** 2
+        for k in range(p):
+            weights[i, k] = np.maximum(1.0 - r2, 0.0) * (rng.random(n) < 0.9)
+            R0 = rotation(rng.uniform(0, np.radians(3))) @ R
+            inits[i, k] = np.concatenate([R0, (t + rng.normal(scale=5.0, size=3))[:, None]],
+                                         1).reshape(12)
+    return tuple(torch.from_numpy(x.astype(np.float32)) for x in (data, weights, inits))
+
+
+def _refine_compare(torch, got, want):
+    """(ok equal, non-finite entries and returned starts equal, max error
+    on R's entries, max error on t over |t|) of the kernel's (descs, ok)
+    against the plain version's."""
+    (gd, gok), (wd, wok) = got, want
+    ok_equal = torch.equal(gok, wok)
+    same = (torch.equal(torch.isfinite(gd), torch.isfinite(wd))
+            and torch.equal(gd[~wok].nan_to_num().view(torch.int32),
+                            wd[~wok].nan_to_num().view(torch.int32)))
+    both = (gok & wok).reshape(-1)
+    g = gd.reshape(-1, 3, 4)[both].double()
+    w = wd.reshape(-1, 3, 4)[both].double()
+    if not len(g):
+        return ok_equal, same, 0.0, 0.0
+    r_err = float((g[..., :3] - w[..., :3]).abs().max())
+    t_err = float(((g[..., 3] - w[..., 3]).norm(dim=-1) / w[..., 3].norm(dim=-1)).max())
+    return ok_equal, same, r_err, t_err
+
+
+def phase_refine(torch, dev):
+    """The pose refit kernel against its plain version on the same CUDA
+    tensors at REFINE_SHAPES, each timed (the C launch alone by graph
+    replay, the plain version the same way, the wrapper on the host)
+    beside its bound and the launch floor; then one launch captured in a
+    CUDA graph, replayed bit for bit, its tally one launch of its
+    problems."""
+    from progressivex_tpu_torch.kernels import pnp as kpnp
+    from progressivex_tpu_torch.kernels import scoring as ks
+
+    rng = np.random.default_rng(0)
+    cases, failures = [], []
+    floor = torch.zeros(1, device=dev)
+    for rows, p, n in REFINE_SHAPES:
+        data, weights, inits = (x.to(dev) for x in _refine_problem(torch, rows, p, n, rng))
+        got = kpnp.refine_cuda(data, weights, inits, REFINE_ITERS)
+        want = kpnp.refine_plain(data, weights, inits, REFINE_ITERS)
+        torch.cuda.synchronize()
+        ok_equal, same, r_err, t_err = _refine_compare(torch, got, want)
+        kernel = kpnp._kernel()
+        out = torch.empty_like(inits)
+        ok = torch.empty(rows, p, dtype=torch.bool, device=dev)
+
+        def launch(data=data, weights=weights, inits=inits, p=p, out=out, ok=ok):
+            e = kernel(data.data_ptr(), weights.data_ptr(), inits.data_ptr(), data.shape[0],
+                       p, data.shape[1], REFINE_ITERS, out.data_ptr(), ok.data_ptr(),
+                       torch.cuda.current_stream().cuda_stream)
+            if e:
+                raise RuntimeError(f"pnp_refine: CUDA error {e}")
+
+        bound, bound_by = _refine_bound(rows, p, n, REFINE_ITERS)
+        case = {"kernel": "pnp_refine", "shape": [rows, p, n], "problems": rows * p,
+                "ok_equal": ok_equal, "non_finite_and_starts_equal": same,
+                "valid": int(got[1].sum()), "r_max_abs_err": r_err, "t_max_rel_err": t_err,
+                "ms": _device_ms(launch), "launch_floor_ms": _device_ms(floor.zero_),
+                "plain_ms": _device_ms(lambda d=data, w=weights, i=inits: kpnp.refine_plain(
+                    d, w, i, REFINE_ITERS)),
+                "wrapper_ms": _host_ms(lambda d=data, w=weights, i=inits: kpnp.refine_cuda(
+                    d, w, i, REFINE_ITERS)),
+                "bound_ms": bound, "bound_by": bound_by}
+        print("kernel case", json.dumps(case), flush=True)
+        cases.append(case)
+        if not (ok_equal and same and r_err <= REFINE_R_ATOL and t_err <= REFINE_T_RTOL):
+            failures.append(f"pnp_refine at {case['shape']}: {case}")
+    data, weights, inits = (x.to(dev) for x in _refine_problem(torch, 3, 10, 2304, rng))
+    direct = kpnp.refine(data, weights, inits)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), ks.recording():
+        kpnp.refine(data, weights, inits)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with ks.recording() as tally, torch.cuda.stream(side):
+        graph.capture_begin(capture_error_mode="thread_local")
+        out, ok = kpnp.refine(data, weights, inits)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    out.fill_(float("nan"))
+    ok.fill_(False)
+    graph.replay()
+    torch.cuda.synchronize()
+    captured = {"kernel": "pnp_refine", "captured": [3, 10, 2304],
+                "bit_equal": (torch.equal(out.view(torch.int32), direct[0].view(torch.int32))
+                              and torch.equal(ok, direct[1])),
+                "tally": list(tally)}
+    print("kernel captured launch", json.dumps(captured), flush=True)
+    if not captured["bit_equal"] or tally != [("pnp_refine", 30)]:
+        failures.append(f"pnp_refine captured launch: {captured}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return cases, captured
+
+
+def _refine_line(refine_phase, launches):
+    """The pnp_refine kernel's entry of the {"kernels": ...} line: its
+    launches in phase 3 P's fits, its time beside its bound at the PEARL
+    rounds' [3 x 10, 2304], and every timed shape."""
+    cases, captured = refine_phase
+    main_case = next(c for c in cases if c["shape"] == [3, 10, 2304])
+    return {
+        "name": "pnp_refine", "route": "cuda",
+        "source": "progressivex_tpu_torch/csrc/pnp_refine.cu",
+        "replaces": "progressivex_tpu/models/pnp.py:187-241",
+        "replaces_note": "the pose refit's lax.scan of six Gauss-Newton steps, lowered by "
+                         "XLA inside the compiled fit; no Pallas kernel",
+        "launches": launches,
+        "r_max_abs_err": max(c["r_max_abs_err"] for c in cases),
+        "t_max_rel_err": max(c["t_max_rel_err"] for c in cases),
+        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
+        "library_ms": None, "shape": main_case["shape"],
+        "wrapper_ms": main_case["wrapper_ms"],
+        "launch_floor_ms": main_case["launch_floor_ms"],
+        "captured_launch_bit_equal": captured["bit_equal"],
+        "timed": [{k: c[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                      "launch_floor_ms", "r_max_abs_err", "t_max_rel_err")}
+                  for c in cases],
+    }
+
+
 def _draw_paths(torch):
     """(label, call) of phase 2's draws: phase 10's paths (the single-scene
     paths of phase 3, phase 5's batched H and F, the dataset pass's H 2304
@@ -1510,11 +1696,11 @@ def _new_path(problem):
 
 
 def _zero_launches():
-    from progressivex_tpu_torch.kernels import linalg, threefry
+    from progressivex_tpu_torch.kernels import linalg, pnp, threefry
     from progressivex_tpu_torch.kernels.scoring import LAUNCHES
 
     for counts in (LAUNCHES, threefry.LAUNCHES, threefry.KEYS, linalg.LAUNCHES,
-                   linalg.MATRICES):
+                   linalg.MATRICES, pnp.LAUNCHES, pnp.PROBLEMS):
         for k in counts:
             counts[k] = 0
 
@@ -1539,6 +1725,18 @@ def _eigvec_launches(label, required=True):
     n = LAUNCHES["eigvec_psd"]
     if required and n <= 0:
         raise AssertionError(f"{label}: eigvec_psd never launched")
+    return n
+
+
+def _refine_launches(label):
+    """pnp_refine's launches since `_zero_launches`: every refit of a pose
+    fit (LO, PEARL, the merges, the final polishes) runs through it, so a
+    pose path without one fails."""
+    from progressivex_tpu_torch.kernels.pnp import LAUNCHES
+
+    n = LAUNCHES["pnp_refine"]
+    if n <= 0:
+        raise AssertionError(f"{label}: pnp_refine never launched")
     return n
 
 
@@ -1627,8 +1825,9 @@ def phase_new_path(torch, problem):
 
 def phase_tless(torch):
     """find6DPoses on T-LESS at TLESS_SEEDS, the launch counts set to 0
-    just before each seed and read after (the path reaches no kernel):
-    every seed at least 2 instances, the mean pose errors at or under
+    just before each seed and read after (the path reaches no scoring
+    kernel; threefry, eigvec_psd and pnp_refine must have run): every seed
+    at least 2 instances, the mean pose errors at or under
     TLESS_MEAN_GATES or the JAX package's on the same seeds
     (JAX_SAME_DRAW_TLESS_MEAN), whichever is larger. The first seed's
     wall time holds the card's first SVD and solve calls."""
@@ -1636,7 +1835,7 @@ def phase_tless(torch):
 
     (xy, xyz), poses, K = _new_scene("tless")
     kw = _new_path("P")[2]
-    per_seed, failures = [], []
+    per_seed, failures, launches = [], [], 0
     for seed in TLESS_SEEDS:
         _zero_launches()
         t0 = time.perf_counter()
@@ -1652,11 +1851,13 @@ def phase_tless(torch):
                "restart_energies": stats.restart_energies,
                "launches": _no_launches("tless"),
                "threefry_launches": _threefry_launches("tless"),
-               "eigvec_launches": _eigvec_launches("tless")}
+               "eigvec_launches": _eigvec_launches("tless"),
+               "refine_launches": _refine_launches("tless")}
         print("main path", json.dumps(res), flush=True)
         if res["n_models"] < 2:
             failures.append(f"tless seed {seed}: {res['n_models']} instances")
         per_seed.append(errs)
+        launches += res["refine_launches"]
     mean = np.array(per_seed).mean(0)  # [pose, (rot, tr)]
     gates = [tuple(max(a, j) for a, j in zip(anchor, same))
              for anchor, same in zip(TLESS_MEAN_GATES, JAX_SAME_DRAW_TLESS_MEAN)]
@@ -1669,7 +1870,7 @@ def phase_tless(torch):
                             f"above {rg} deg, {tg} mm")
     if failures:
         raise AssertionError("; ".join(failures))
-    return mean
+    return {"mean": mean.tolist(), "refine_launches": launches}
 
 
 def phase_card_vs_cpu_new(result, problem):
@@ -2764,7 +2965,7 @@ def phase_compiled_fit(torch):
     form's runs (descriptors, labels, energy, round log, samples drawn,
     models, every field) and the kernels' launch counts (the scoring
     kernels' LAUNCHES and ROWS, threefry's launches and keys, eigvec_psd's
-    launches and matrices) must equal
+    launches and matrices, pnp_refine's launches and problems) must equal
     the eager run's bit for bit. One more warm run under
     torch.cuda.set_sync_debug_mode("warn") counts the synchronizations:
     at most two a round, at the round loop's reads in core/graphs.py, and
@@ -2785,7 +2986,7 @@ def phase_compiled_fit(torch):
     from progressivex_tpu_torch.core import engine, graphs
     from progressivex_tpu_torch.io.data import load_corr_scene
     from progressivex_tpu_torch.io.profiling import device_operations
-    from progressivex_tpu_torch.kernels import linalg, threefry
+    from progressivex_tpu_torch.kernels import linalg, pnp, threefry
     from progressivex_tpu_torch.kernels.scoring import LAUNCHES, ROWS
 
     def run(call):
@@ -2804,8 +3005,8 @@ def phase_compiled_fit(torch):
             undo()
         passes = sum(int(r.rounds_run.max()) for r in seen)
         return (wall, [_fit_fields(r) for r in seen],
-                {**LAUNCHES, **threefry.LAUNCHES, **linalg.LAUNCHES},
-                {**ROWS, **threefry.KEYS, **linalg.MATRICES}, passes)
+                {**LAUNCHES, **threefry.LAUNCHES, **linalg.LAUNCHES, **pnp.LAUNCHES},
+                {**ROWS, **threefry.KEYS, **linalg.MATRICES, **pnp.PROBLEMS}, passes)
 
     failures, table = [], []
     total = {}
@@ -2994,9 +3195,10 @@ def main():
     kernel_phase = _timed("2 kernels", phase_kernel, torch, dev)
     draw_phase = _timed("2 draws", phase_draws, torch, dev)
     eigvec_phase = _timed("2 eigvec", phase_eigvec, torch, dev)
+    refine_phase = _timed("2 refine", phase_refine, torch, dev)
     results = {p: _timed(f"3 {p}", phase_main_path, torch, p) for p in ("H", "F")}
     new = {p: _timed(f"3 {p}", phase_new_path, torch, p) for p in ("L", "V")}
-    _timed("3 P", phase_tless, torch)
+    tless = _timed("3 P", phase_tless, torch)
     results["E"] = _timed("3 E", phase_essential, torch)
     _timed("4 H", phase_card_vs_cpu, results["H"], "H", "oldclassicswing")
     _timed("4 F", phase_card_vs_cpu, results["F"], "F", "book")
@@ -3050,6 +3252,7 @@ def main():
     kernels.append(_threefry_line(draw_phase, {**results, "L": {"lines-0": new["L"]},
                                                "V": {"vp-0": new["V"]}}))
     kernels.append(_eigvec_line(eigvec_phase, {**results, "V": {"vp-0": new["V"]}}))
+    kernels.append(_refine_line(refine_phase, tless["refine_launches"]))
     for k in kernels:
         k["launches_compiled_fit"] = compiled["launches"][k["name"]]
     print("bench", json.dumps(bench), flush=True)

@@ -16,19 +16,22 @@ kernel for this family; its proposal scorer is the plain
 
 The SVDs (Kabsch and the SO(3) projection) are `ops/linalg.svd3` on a
 matrix made finite first (`torch.linalg.svd` on the CPU, a Jacobi SVD
-that reads nothing to the host on the card); the 6x6 Gauss-Newton system is solved by LU with
-partial pivoting (`torch.linalg.solve_ex`, as `jnp.linalg.solve`) without
-the error check that would read a flag back from the card.
+that reads nothing to the host on the card). The refit is
+kernels/pnp.py: on the CPU its plain version, whose 6x6 Gauss-Newton
+system is solved by LU with partial pivoting (`torch.linalg.solve_ex`, as
+`jnp.linalg.solve`); on the card one launch of csrc/pnp_refine.cu.
 
 `_nonminimal`, `_refine` and `_squared_residual` take data [N, 5] or
 [R, N, 5], with the row axis leading the weights and descriptors too
-(models/base.py); every sum over the points goes through `row_sum`.
+(models/base.py); every sum over the points of the plain torch code goes
+through `row_sum`.
 """
 
 from __future__ import annotations
 
 import torch
 
+from progressivex_tpu_torch.kernels import pnp as kpnp
 from progressivex_tpu_torch.models.base import (ModelFamily, point_columns,
                                                 register_family, row_view)
 from progressivex_tpu_torch.ops.linalg import (det3, gram, kabsch, matmul_small,
@@ -166,34 +169,9 @@ def _refine(data, weights, init_desc, n_iters: int = 6):
     """Weighted Gauss-Newton on the reprojection error from init_desc,
     R <- exp(omega) R on the left; points behind the camera drop out.
     weights [(R,) ..., N], init_desc [(R,) ..., 12] -> (descs, valid); an
-    invalid refit returns its start."""
-    Pm = init_desc.reshape(*init_desc.shape[:-1], 3, 4)
-    R, t = Pm[..., :3], Pm[..., 3]
-    Xw = row_view(data[..., 2:5], data, weights, 2)  # [(R,) 1.., N, 3]
-    obs = row_view(data[..., :2], data, weights, 2)
-    w = torch.clamp(weights, min=0.0)
-    eye6 = 1e-8 * torch.eye(6, dtype=data.dtype, device=data.device)
-    for _ in range(n_iters):
-        q = (Xw[..., :, None, :] * R[..., None, :, :]).sum(-1) + t[..., None, :]  # [.., N, 3]
-        z = q[..., 2]
-        front = z > 1e-6
-        invz = 1.0 / torch.where(front, z, 1.0)
-        r = q[..., :2] * invz[..., None] - obs  # [..., N, 2]
-        zero = torch.zeros_like(z)
-        Jq = torch.stack([  # d proj / d q, [..., N, 2, 3]
-            torch.stack([invz, zero, -q[..., 0] * invz * invz], -1),
-            torch.stack([zero, invz, -q[..., 1] * invz * invz], -1)], -2)
-        # d q / d omega = -[R X]_x (left update), d q / d t = I
-        J = torch.cat([matmul_small(Jq, -_skew(q - t[..., None, :])), Jq], -1)
-        Jw = J * (w * front)[..., None, None]
-        H = row_sum((Jw[..., :, :, None] * J[..., :, None, :]).sum(-3), -3) + eye6
-        g = row_sum((Jw * r[..., None]).sum(-2), -2)
-        d = torch.linalg.solve_ex(H, -g[..., None])[0][..., 0]
-        R = matmul_small(_so3_exp(d[..., :3]), R)
-        t = t + d[..., 3:]
-    desc = _pose_desc(R, t)
-    ok = torch.isfinite(desc).all(-1) & ((w > 0).sum(-1) >= 3)
-    return torch.where(ok[..., None], desc, init_desc), ok
+    invalid refit returns its start. The plain torch version on the CPU,
+    one launch of csrc/pnp_refine.cu on the card (kernels/pnp.py)."""
+    return kpnp.refine(data, weights, init_desc, n_iters)
 
 
 def _squared_residual(data, descs):
