@@ -21,11 +21,12 @@ The stages read nothing to the host, as the JAX package's device loops
 their predicated steps, the round index is a device tensor and the log is
 written one-hot at it. The round loop reads at most two values a round:
 `any_pearl` between the halves (a round in which no row runs PEARL skips
-its work) and `all_done` at its end (the JAX while_loop's condition). On
-a CUDA device each stage is a CUDA graph, captured once per key and
-replayed (core/graphs.py, the counterpart of the JAX package's compiled
-fit); on the CPU, inside `graphs.eager()` and for replicas on other
-devices, the same stages run eagerly.
+its work) and `all_done` at its end (the JAX while_loop's condition).
+`_fit_rows` is the one driver of that sequence. It runs each stage
+through a runner (core/graphs.py): on a CUDA device a CUDA graph,
+captured once per key and replayed (the counterpart of the JAX package's
+compiled fit); on the CPU, inside `graphs.eager()` and for replicas on
+other devices, an eager call.
 `fit` is one scene: a call of `fit_rows` with its `n_restarts` restarts as
 rows, and `select_restart` picks the winner on the host, as the JAX
 package vmaps restarts.
@@ -85,6 +86,7 @@ import torch
 from torch.profiler import record_function
 
 from progressivex_tpu_torch._device import run_per_device
+from progressivex_tpu_torch.core import graphs
 from progressivex_tpu_torch.core.config import (EngineConfig, RuntimeParams, per_row,
                                                 rows_params, truncated_sq_threshold)
 from progressivex_tpu_torch.core.pearl import (_top_k, merge_instances, pearl_run,
@@ -765,7 +767,9 @@ def fit_rows(family: ModelFamily, cfg: EngineConfig, params: RuntimeParams, data
     ("rows", or "fit" for `fit`'s calls) under the fit's key; a fit whose
     replicas sit on other devices, a fit inside `graphs.eager()` and a
     fit on the CPU run the same stages eagerly, all inside one `progx.fit`
-    span (io/profiling.py)."""
+    span (io/profiling.py), with `progx.read.any_pearl`,
+    `progx.read.all_done` and `progx.read.progress` around the host reads
+    between the stages."""
     with profiling.span("progx.fit"):
         return _fit_rows(family, cfg, params, data, point_mask, point_weights, keys,
                          presampled, graph_data, hyp_devices, cache)
@@ -773,33 +777,76 @@ def fit_rows(family: ModelFamily, cfg: EngineConfig, params: RuntimeParams, data
 
 def _fit_rows(family, cfg, params, data, point_mask, point_weights, keys, presampled,
               graph_data, hyp_devices, cache) -> FitResult:
-    from progressivex_tpu_torch.core import graphs
-
     _check_slice(cfg)
     n_rows = data.shape[0]
     dev = data.device
     params = rows_params(params, n_rows, dev)
     keys = _row_keys(cfg, keys, presampled, n_rows, dev)
-    if graphs.applies(dev, hyp_devices):
-        return graphs.fit_rows(family, cfg, params, data, point_mask, point_weights,
-                               keys, presampled, graph_data, cache)
-    prep = prepare(cfg, params, data, point_mask, point_weights, graph_data)
-    samples = (presampled if presampled is not None
-               else draw(family, cfg, params.n_valid, keys, prep))
-    samples, carry = start(family, cfg, prep.data, prep.rank, samples)
-    moves = (family, cfg, params, prep.data, prep.point_mask, prep.point_weights,
-             prep.adj)
-    propose = _make_propose(*moves, samples, hyp_devices)
-    pearl_always = unrolled(cfg)
-    for _ in range(cfg.max_rounds):
-        prop = round_propose(*moves, propose, carry)
-        carry, progress, all_done = round_update(
-            *moves, carry, prop, pearl_always or bool(prop.any_pearl))
-        if cfg.live_progress:
-            _emit_progress(*progress)
-        if not pearl_always and bool(all_done):
-            break
-    return finish(*moves, prep.rank, carry)
+    with graphs.runner(family, cfg, params, data, point_weights, graph_data, keys,
+                       presampled, hyp_devices, cache) as run:
+        p = params._replace(threshold=run.static("threshold", params.threshold),
+                            n_valid=run.static("n_valid", params.n_valid))
+        data, mask, weights, gd = (run.static(k, t) for k, t in (
+            ("data", data), ("mask", point_mask), ("weights", point_weights),
+            ("graph", graph_data)))
+        prep = run.stage("prepare", lambda: prepare(cfg, p, data, mask, weights, gd))
+        if presampled is not None:
+            raw = tuple(run.static(f"samples{i}", torch.as_tensor(t), dtype)
+                        for i, (t, dtype) in enumerate(zip(presampled,
+                                                           (torch.int64, torch.bool) * 2)))
+
+            def sampled():
+                return raw
+        else:
+            k = run.static("keys", keys)
+
+            def sampled():
+                return draw(family, cfg, p.n_valid, k, prep)
+
+        samples, carry = run.stage(
+            "start", lambda: start(family, cfg, prep.data, prep.rank, sampled()))
+        moves = (family, cfg, p, prep.data, prep.point_mask, prep.point_weights, prep.adj)
+        if run.captures:
+            # Built inside every capture that uses it: under cfg.hyp_axis the
+            # replicas' copies of the inputs are captured work, which reads
+            # the static buffers at each replay. Every replica is on the
+            # fit's device (graphs.applies).
+            def propose():
+                return _make_propose(*moves, samples)
+        else:
+            built = _make_propose(*moves, samples, hyp_devices)
+
+            def propose():
+                return built
+
+        if unrolled(cfg):
+            def whole():
+                c, prop_fn = carry, propose()
+                for _ in range(cfg.max_rounds):
+                    c = round_update(*moves, c, round_propose(*moves, prop_fn, c), True)[0]
+                return finish(*moves, prep.rank, c)
+
+            return run.result(run.stage("rounds", whole))
+
+        def update_outs(warm):
+            # the carry's own buffers: a graph updates it in place
+            return (carry, *graphs._map(torch.empty_like, warm[1:]))
+
+        for _ in range(cfg.max_rounds):
+            prop = run.stage("propose", lambda: round_propose(*moves, propose(), carry))
+            with profiling.span("progx.read.any_pearl"):
+                pearl = bool(prop.any_pearl)
+            carry, progress, all_done = run.stage(
+                f"update{int(pearl)}",
+                lambda pearl=pearl: round_update(*moves, carry, prop, pearl), update_outs)
+            if cfg.live_progress:
+                with profiling.span("progx.read.progress"):
+                    _emit_progress(*progress)
+            with profiling.span("progx.read.all_done"):
+                done = bool(all_done)
+            if done:
+                break
+        return run.result(run.stage("finish", lambda: finish(*moves, prep.rank, carry)))
 
 
 def finish(family, cfg, params, data, point_mask, point_weights, adj, rank,

@@ -4,8 +4,11 @@ fit, `api._compiled_fit` and `api_batch._compiled_fit_rows`
 which make one device program per (family, config, pad level, rows) and
 keep it in an lru_cache.
 
-A fit on a CUDA device (`engine.fit_rows`) runs its stages as graphs,
-each captured at the first call of its key and replayed after:
+This module only captures and replays. `engine.fit_rows` sequences a
+fit's stages, the same for both forms, through a runner that `runner`
+picks once a call: on a CUDA device the key's `_Graphs`, which runs each
+stage as a graph, captured at the first call of its key and replayed
+after; elsewhere `_EagerRunner`, which calls it. The stages:
 
   prepare   the principal-axis sort, the kNN or grid graph, the adjacency;
   start     the draw of every round's samples from the rows' keys on the
@@ -20,10 +23,7 @@ each captured at the first call of its key and replayed after:
             rounds, PEARL under its gate, and `finish`, one graph.
 
 Between them the host reads nothing before the rounds, then at most two
-values a round: `any_pearl` between the halves, so that a round in which no row
-runs PEARL skips its work, and `all_done` at the round's end (the JAX
-while_loop's condition). A live-progress fit reads the round's statistics
-there too.
+values a round (engine.fit_rows).
 
 The key is (family, EngineConfig, the scalar RuntimeParams, the shapes and
 types of the data, weights and graph coordinates, the samples' shapes,
@@ -37,7 +37,7 @@ other caller of `fit_rows`.
 
 A graph is warmed up once on a side stream (lazy initialization, the
 kernels' libraries, per-device constants; its kernel launches are not
-counted, kernels/scoring.py), then captured with
+counted, kernels/_build.py), then captured with
 capture_error_mode="thread_local" (a device mesh runs a thread a card,
 _device.run_per_device) into the key's memory pool. Every graph writes
 its results into buffers allocated outside the pool, so that the order in
@@ -48,15 +48,14 @@ at a time in the process.
 
 `eager()` runs the fits inside it eagerly on the card: the phase timing
 of io/profiling.py needs the per-operation scopes that a replay does not
-have.
+have. So do replicas on another device (`applies`).
 
 Spans (io/profiling.py): `progx.replay.<stage>` around each
-`graph.replay()` (with its device interval when recorded), and `progx.read.any_pearl`,
-`progx.read.all_done` and `progx.read.progress` around the host reads
-between replays. With no recording and no profiler on, each is a shared
-no-op after two flag checks (about 1 us a `with` block on the CPU): a
-fit of ten rounds opens about 45 spans in all, two replays and two
-reads a round.
+`graph.replay()` (with its device interval when recorded); the reads
+between replays open theirs in engine.fit_rows. With no recording and no
+profiler on, each is a shared no-op after two flag checks (about 1 us a
+`with` block on the CPU): a fit of ten rounds opens about 45 spans in
+all, two replays and two reads a round.
 """
 
 from __future__ import annotations
@@ -70,9 +69,8 @@ import numpy as np
 import torch
 
 from progressivex_tpu_torch._device import device_guard
-from progressivex_tpu_torch.core import engine
 from progressivex_tpu_torch.io import profiling
-from progressivex_tpu_torch.kernels import scoring
+from progressivex_tpu_torch.kernels import _build
 
 _SIZES = {"fit": 64, "rows": 32}
 _CACHES = {name: collections.OrderedDict() for name in _SIZES}
@@ -161,7 +159,10 @@ def _stream(dev: torch.device) -> torch.cuda.Stream:
 
 
 class _Graphs:
-    """One key's static buffers and graphs, on `dev`."""
+    """One key's static buffers and graphs, on `dev`: the graph form of
+    `engine.fit_rows`' stages (see `runner`)."""
+
+    captures = True
 
     def __init__(self, dev: torch.device):
         self.dev = dev
@@ -181,7 +182,7 @@ class _Graphs:
         graph, tally = self.graphs[name]
         with profiling.replay(f"progx.replay.{name}"):
             graph.replay()
-        scoring.add_counts(tally)
+        _build.add_counts(tally)
         return self.outs[name]
 
     def _capture(self, name, fn, outs):
@@ -190,7 +191,7 @@ class _Graphs:
             stream = _stream(dev)
             stream.wait_stream(torch.cuda.current_stream(dev))
             t0 = time.perf_counter()
-            with torch.cuda.stream(stream), scoring.recording():
+            with torch.cuda.stream(stream), _build.recording():
                 warm = fn()
             bufs = _map(torch.empty_like, warm) if outs is None else outs(warm)
             del warm
@@ -199,7 +200,7 @@ class _Graphs:
             if self.pool is None:
                 self.pool = torch.cuda.graph_pool_handle()
             graph = torch.cuda.CUDAGraph()
-            with scoring.recording() as tally, torch.cuda.stream(stream):
+            with _build.recording() as tally, torch.cuda.stream(stream):
                 graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
                 try:
                     _write(bufs, fn())
@@ -216,7 +217,7 @@ class _Graphs:
         self.graphs[name] = (graph, tuple(tally))
         self.outs[name] = bufs
 
-    def _static(self, name, src, dtype=None):
+    def static(self, name, src, dtype=None):
         """The static input buffer `name`, holding a copy of `src` (None
         stays None)."""
         if src is None:
@@ -228,68 +229,9 @@ class _Graphs:
         buf.copy_(src)
         return buf
 
-    def fit(self, family, cfg, params, data, point_mask, point_weights, keys,
-            presampled, graph_data):
-        """`engine.fit_rows`' stages as this key's graphs, on this call's
-        inputs; returns the FitResult's tensors cloned out of the
-        buffers."""
-        p = params._replace(threshold=self._static("threshold", params.threshold),
-                            n_valid=self._static("n_valid", params.n_valid))
-        data, mask, weights, gd = (self._static(k, t) for k, t in (
-            ("data", data), ("mask", point_mask), ("weights", point_weights),
-            ("graph", graph_data)))
-        prep = self.stage("prepare", lambda: engine.prepare(cfg, p, data, mask, weights, gd))
-        if presampled is not None:
-            raw = tuple(self._static(f"samples{i}", torch.as_tensor(t), dtype)
-                        for i, (t, dtype) in enumerate(zip(presampled,
-                                                           (torch.int64, torch.bool) * 2)))
-
-            def sampled():
-                return raw
-        else:
-            k = self._static("keys", keys)
-
-            def sampled():
-                return engine.draw(family, cfg, p.n_valid, k, prep)
-
-        samples, carry = self.stage(
-            "start", lambda: engine.start(family, cfg, prep.data, prep.rank, sampled()))
-        moves = (family, cfg, p, prep.data, prep.point_mask, prep.point_weights, prep.adj)
-
-        def propose():
-            return engine._make_propose(*moves, samples)
-
-        if engine.unrolled(cfg):
-            def whole():
-                c, prop_fn = carry, propose()
-                for _ in range(cfg.max_rounds):
-                    c = engine.round_update(*moves, c, engine.round_propose(*moves, prop_fn, c),
-                                            True)[0]
-                return engine.finish(*moves, prep.rank, c)
-
-            return _map(torch.clone, self.stage("rounds", whole))
-
-        def update_outs(warm):
-            return (carry, *_map(torch.empty_like, warm[1:]))
-
-        for _ in range(cfg.max_rounds):
-            prop = self.stage("propose",
-                              lambda: engine.round_propose(*moves, propose(), carry))
-            with profiling.span("progx.read.any_pearl"):
-                pearl = bool(prop.any_pearl)
-            _, progress, all_done = self.stage(
-                f"update{int(pearl)}",
-                lambda pearl=pearl: engine.round_update(*moves, carry, prop, pearl),
-                update_outs)
-            if cfg.live_progress:
-                with profiling.span("progx.read.progress"):
-                    engine._emit_progress(*progress)
-            with profiling.span("progx.read.all_done"):
-                done = bool(all_done)
-            if done:
-                break
-        return _map(torch.clone, self.stage(
-            "finish", lambda: engine.finish(*moves, prep.rank, carry)))
+    def result(self, tree):
+        """A stage's results cloned out of its buffers."""
+        return _map(torch.clone, tree)
 
 
 def _key(family, cfg, params, data, point_weights, graph_data, keys, presampled):
@@ -318,15 +260,41 @@ def _entry(cache: str, key, dev: torch.device) -> _Graphs:
         return entry
 
 
-def fit_rows(family, cfg, params, data, point_mask, point_weights, keys, presampled,
-             graph_data, cache="rows") -> engine.FitResult:
-    """`engine.fit_rows` on a CUDA device as graphs (`params` with its
-    per-row tensors, `keys` the rows' keys on the device, or None with
-    `presampled`); the FitResult's tensors are the graphs' results,
-    cloned."""
+class _EagerRunner:
+    """The eager form of `engine.fit_rows`' stages: each runs as it is
+    called, on its inputs as given, and its results are handed back as
+    they are."""
+
+    captures = False
+
+    def stage(self, name, fn, outs=None):
+        return fn()
+
+    def static(self, name, src, dtype=None):
+        return src
+
+    def result(self, tree):
+        return tree
+
+
+_EAGER_RUNNER = _EagerRunner()
+
+
+@contextlib.contextmanager
+def runner(family, cfg, params, data, point_weights, graph_data, keys, presampled,
+           hyp_devices=None, cache="rows"):
+    """The runner of one `engine.fit_rows` call on `data`'s device: the
+    eager form unless `applies`, else the key's `_Graphs` (`params` with
+    its per-row tensors, `keys` the rows' keys on the device, or None with
+    `presampled`), held under its lock, with the device current, for the
+    whole call. A runner has `stage(name, fn, outs=None)`, `static(name,
+    src, dtype=None)` (an input in the key's static buffer) and
+    `result(tree)`; `captures` says whether its stages are graphs."""
     dev = data.device
+    if not applies(dev, hyp_devices):
+        yield _EAGER_RUNNER
+        return
     key = _key(family, cfg, params, data, point_weights, graph_data, keys, presampled)
     entry = _entry(cache, key, dev)
     with device_guard(dev), entry.lock:
-        return entry.fit(family, cfg, params, data, point_mask, point_weights,
-                         keys, presampled, graph_data)
+        yield entry

@@ -44,7 +44,8 @@ from progressivex_tpu_torch.api import (PAD_LEVELS, _hyp_budget, findHomographie
 from progressivex_tpu_torch.io.data import (ADELAIDE_F_SCENES, ADELAIDE_H_SCENES,
                                             DEFAULT_ROOT, load_corr_scene)
 from progressivex_tpu_torch.io.metrics import misclassification
-from progressivex_tpu_torch.kernels.scoring import LAUNCHES
+from progressivex_tpu_torch.kernels._build import LAUNCHES
+from progressivex_tpu_torch.kernels.scoring import KERNELS
 from progressivex_tpu_torch.models import get_family
 from progressivex_tpu_torch.ops import prng
 from progressivex_tpu_torch.parallel.sharding import make_mesh
@@ -294,12 +295,12 @@ def _time_batches(prep: _Prepared, n_timing_runs, seed, dev, mesh, compile_s):
     for batch in prep.plan:
         times = []
         for i in range(n_timing_runs):
-            before = sum(LAUNCHES.values())
+            before = sum(LAUNCHES[k] for k in KERNELS)
             t0 = time.perf_counter()
             labels = _run(prep, batch, seed + i + 1, dev, mesh)
             _sync(dev, mesh)
             times.append(time.perf_counter() - t0)
-            launches = sum(LAUNCHES.values()) - before
+            launches = sum(LAUNCHES[k] for k in KERNELS) - before
             for s, lab in zip(batch.lane_ids, labels):
                 mes.setdefault(prep.names[s], []).append(
                     misclassification(lab, prep.scenes[s][1]))

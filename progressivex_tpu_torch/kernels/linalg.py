@@ -9,14 +9,11 @@ weighted refit calls, routes here. The JAX package leaves the solver to
 XLA (progressivex_tpu/ops/linalg.py:405); the plain version launches
 about 1,460 operations a call at n = 9, the kernel one.
 
-Dispatch: a CPU tensor takes the plain version, of any type and size; a
-CUDA tensor launches the kernel or raises (`_check`: float32,
-contiguous, square, n in SIZES). The launch goes to the matrices'
-device, on its current stream, which may be capturing a CUDA graph
-(core/graphs.py). `LAUNCHES` counts launches and `MATRICES` the matrices
-they solved, with the scoring kernels' machinery (kernels/scoring.py:
-`recording`, `add_counts`), so that a graph fit counts what the eager fit
-counts.
+Dispatch and launch (kernels/_build.py): a CPU tensor takes the plain
+version, of any type and size; a CUDA tensor launches the kernel or
+raises (`_check`: float32, contiguous, square, n in SIZES). The launch
+goes to the matrices' device, on its current stream, and counts in
+`_build.LAUNCHES` and `_build.UNITS` (the matrices it solved).
 
 Tolerance against the plain version on the same CUDA tensor: the kernel
 takes the trace and each squared norm in index order, torch's reductions
@@ -31,13 +28,11 @@ import ctypes
 
 import torch
 
-from progressivex_tpu_torch._device import device_guard
-from progressivex_tpu_torch.kernels import scoring
+from progressivex_tpu_torch.kernels import _build
 
 SIZES = (3, 9, 12)
-LAUNCHES = {"eigvec_psd": 0}
-MATRICES = {"eigvec_psd": 0}
-scoring.register(LAUNCHES, MATRICES)
+# matrices, batch, n, iters, out
+_ARGS = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 
 
 def _check(M):
@@ -69,39 +64,21 @@ def smallest_eigvec_psd_plain(M, iters: int = 6):
     return v
 
 
-def _kernel():
-    from progressivex_tpu_torch.kernels import _build
-
-    fn = _build.load("eigvec_psd").eigvec_psd
-    if fn.argtypes is None:
-        vp = ctypes.c_void_p
-        fn.restype = ctypes.c_int  # before argtypes, which another thread tests
-        fn.argtypes = [vp, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, vp, vp]
-    return fn
-
-
 def smallest_eigvec_psd_cuda(M, iters: int = 6):
-    """Launch csrc/eigvec_psd.cu's kernel on CUDA matrices and count it."""
+    """Launch csrc/eigvec_psd.cu's kernel on CUDA matrices."""
     _check(M)
     dev = M.device
     n = M.shape[-1]
     out = torch.empty(M.shape[:-1], dtype=torch.float32, device=dev)
     batch = out.numel() // n
     if batch:
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        with device_guard(dev), torch.profiler.record_function("eigvec_psd"):
-            err = _kernel()(M.data_ptr(), batch, n, int(iters), out.data_ptr(), stream)
-        if err != 0:
-            raise RuntimeError(f"eigvec_psd launch failed: CUDA error {err}")
-        scoring._count("eigvec_psd", batch)
+        _build.launch("eigvec_psd", dev, batch, _ARGS, M.data_ptr(), batch, n, int(iters),
+                      out.data_ptr())
     return out
 
 
 def smallest_eigvec_psd(M, iters: int = 6):
     """The plain version for CPU matrices, the CUDA kernel for CUDA
     matrices."""
-    if M.device.type == "cpu":
-        return smallest_eigvec_psd_plain(M, iters)
-    if M.device.type != "cuda":
-        raise ValueError(f"no eigvec_psd kernel for device {M.device}")
-    return smallest_eigvec_psd_cuda(M, iters)
+    return _build.dispatch("eigvec_psd", M.device, smallest_eigvec_psd_plain,
+                           smallest_eigvec_psd_cuda)(M, iters)

@@ -16,16 +16,14 @@ is the `lax.scan` in progressivex_tpu/models/pnp.py:187-241, which XLA
 lowers inside its compiled fit; the plain version launches about 98
 operations a step, 590 a call, the kernel one.
 
-Dispatch: a CPU tensor takes the plain version, of any type and shape.
-On a CUDA tensor the call's middle axes (the same for the weights and the
-starts) are flattened into P problems a row (a copy where they are
-strided) and the kernel runs or the call raises (`_check`: float32, contiguous, data [R, N, 5], weights
-[R, P, N], init [R, P, 12]). The launch goes to the data's device, on its
-current stream, which may be capturing a CUDA graph (core/graphs.py).
-`LAUNCHES` counts launches and `PROBLEMS` the (row, instance) problems
-they refit, with the scoring kernels' machinery (kernels/scoring.py:
-`recording`, `add_counts`), so that a graph fit counts what the eager fit
-counts.
+Dispatch and launch (kernels/_build.py): a CPU tensor takes the plain
+version, of any type and shape. On a CUDA tensor the call's middle axes
+(the same for the weights and the starts) are flattened into P problems
+a row (a copy where they are strided) and the kernel runs or the call
+raises (`_check`: float32, contiguous, data [R, N, 5], weights [R, P, N],
+init [R, P, 12]). The launch goes to the data's device, on its current
+stream, and counts in `_build.LAUNCHES` and `_build.UNITS` (the (row,
+instance) problems it refit).
 
 Tolerance against the plain version on the same CUDA tensors: every
 point's terms are the plain version's operations, one rounding each, but
@@ -45,12 +43,11 @@ import math
 
 import torch
 
-from progressivex_tpu_torch._device import device_guard
-from progressivex_tpu_torch.kernels import scoring
+from progressivex_tpu_torch.kernels import _build
 
-LAUNCHES = {"pnp_refine": 0}
-PROBLEMS = {"pnp_refine": 0}
-scoring.register(LAUNCHES, PROBLEMS)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# data, weights, starts, R, P, N, steps, descs, valid
+_ARGS = (_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P, _P)
 
 
 def refine_plain(data, weights, init_desc, n_iters: int = 6):
@@ -109,21 +106,9 @@ def _check(data, weights, init_desc):
                          f"[{rows}, {weights.shape[1]}, 12]")
 
 
-def _kernel():
-    from progressivex_tpu_torch.kernels import _build
-
-    fn = _build.load("pnp_refine").pnp_refine
-    if fn.argtypes is None:
-        vp = ctypes.c_void_p
-        fn.restype = ctypes.c_int  # before argtypes, which another thread tests
-        fn.argtypes = [vp, vp, vp, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, vp, vp, vp]
-    return fn
-
-
 def refine_cuda(data, weights, init_desc, n_iters: int = 6):
     """Launch csrc/pnp_refine.cu's kernel on CUDA tensors data [R, N, 5],
-    weights [R, P, N], init_desc [R, P, 12] and count it. Returns (descs
+    weights [R, P, N], init_desc [R, P, 12]. Returns (descs
     [R, P, 12], valid [R, P])."""
     _check(data, weights, init_desc)
     dev = data.device
@@ -132,14 +117,9 @@ def refine_cuda(data, weights, init_desc, n_iters: int = 6):
     out = torch.empty(init_desc.shape, dtype=torch.float32, device=dev)
     ok = torch.empty(init_desc.shape[:-1], dtype=torch.bool, device=dev)
     if rows * problems:
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        with device_guard(dev), torch.profiler.record_function("pnp_refine"):
-            err = _kernel()(data.data_ptr(), weights.data_ptr(), init_desc.data_ptr(),
-                            rows, problems, n, int(n_iters), out.data_ptr(),
-                            ok.data_ptr(), stream)
-        if err != 0:
-            raise RuntimeError(f"pnp_refine launch failed: CUDA error {err}")
-        scoring._count("pnp_refine", rows * problems)
+        _build.launch("pnp_refine", dev, rows * problems, _ARGS, data.data_ptr(),
+                      weights.data_ptr(), init_desc.data_ptr(), rows, problems, n,
+                      int(n_iters), out.data_ptr(), ok.data_ptr())
     return out, ok
 
 
@@ -147,10 +127,12 @@ def refine(data, weights, init_desc, n_iters: int = 6):
     """The plain version for CPU tensors; for CUDA tensors the kernel, on
     the call's middle axes flattened: weights [(R,) ..., N] and init_desc
     [(R,) ..., 12] with the same middle axes, P their size."""
-    if data.device.type == "cpu":
-        return refine_plain(data, weights, init_desc, n_iters)
-    if data.device.type != "cuda":
-        raise ValueError(f"no pnp_refine kernel for device {data.device}")
+    return _build.dispatch("pnp_refine", data.device, refine_plain, _refine_flat)(
+        data, weights, init_desc, n_iters)
+
+
+def _refine_flat(data, weights, init_desc, n_iters):
+    """`refine_cuda` on the call's middle axes flattened."""
     rows = data.shape[0] if data.ndim == 3 else 1
     n = data.shape[-2]
     p = math.prod(init_desc.shape[data.ndim - 2:-1])

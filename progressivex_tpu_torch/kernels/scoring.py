@@ -21,80 +21,28 @@ Rows: every function takes a leading row axis, data [R, N, 4], descs
 `fused_scores`). Called without the row axis (data [N, 4], descs [B, 9],
 scalars), they return [B] outputs, as one row.
 
-Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
-the kernel or raises. A launch goes to the device of its tensors, whatever
-the calling thread's current device, on that device's current stream,
-which may be capturing a CUDA graph (core/graphs.py): the launch then
-becomes a node of the graph. `LAUNCHES` counts kernel launches and `ROWS`
-the rows they scored, both incremented under a lock at the one place a
-launch happens, so that the counts are exact when several host threads
-launch (a device mesh, parallel/sharding). Inside `recording()` a launch
-is tallied for the calling thread instead: a graph's capture records its
-launches so, and each replay adds them (`add_counts`), which keeps the
-counts of a graph fit equal to those of the same fit run eagerly; the
-launches of a graph's warm-up, made only to build it, are recorded and
-dropped.
+Dispatch and launch (kernels/_build.py): a CPU tensor takes the plain
+version; a CUDA tensor launches the kernel or raises. A launch goes to the
+device of its tensors, on that device's current stream, and counts in
+`_build.LAUNCHES` and `_build.UNITS` (the rows it scored). `LAUNCHES`
+here is that table, which gives each scoring kernel's launches.
 """
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
-import threading
 
 import torch
 
-from progressivex_tpu_torch._device import device_guard
+from progressivex_tpu_torch.kernels import _build
+from progressivex_tpu_torch.kernels._build import LAUNCHES  # noqa: F401 (bench_port/harness.py reads it here)
 
-LAUNCHES = {"score_homography": 0, "score_fundamental": 0}
-ROWS = {"score_homography": 0, "score_fundamental": 0}
-_COUNT_LOCK = threading.Lock()
-# name -> (launches, rows) of every kernel counted here: the scoring
-# kernels', and those another module registers (kernels/threefry.py)
-_TABLES = {name: (LAUNCHES, ROWS) for name in LAUNCHES}
-
-
-def register(launches: dict, rows: dict):
-    """Count the kernels named in `launches` (and their rows in `rows`)
-    with the scoring kernels' machinery (`recording`, `add_counts`), in
-    those dicts."""
-    for name in launches:
-        _TABLES[name] = (launches, rows)
-
-
-_RECORDING = threading.local()
-
-
-def _count(name: str, rows: int):
-    """One launch of `name` over `rows` rows, counted, or tallied where
-    the calling thread is inside `recording()`."""
-    tally = getattr(_RECORDING, "tally", None)
-    if tally is not None:
-        tally.append((name, rows))
-        return
-    add_counts([(name, rows)])
-
-
-def add_counts(tally):
-    """Count the launches of `tally`, [(name, rows), ...]."""
-    with _COUNT_LOCK:
-        for name, rows in tally:
-            launches, rows_of = _TABLES[name]
-            launches[name] += 1
-            rows_of[name] += rows
-
-
-@contextlib.contextmanager
-def recording():
-    """Inside, the calling thread's launches are appended to the yielded
-    list as (name, rows) instead of counted."""
-    outer = getattr(_RECORDING, "tally", None)
-    _RECORDING.tally = tally = []
-    try:
-        yield tally
-    finally:
-        _RECORDING.tally = outer
+KERNELS = ("score_homography", "score_fundamental")
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# pts, compound, mask, descs, R, B, N, trunc_sq, has_compound, exponent,
+# magsac levels, K, cluster, threads, scores, inliers, dots, norms
+_ARGS = (_P, _P, _P, _P, _I, _I, _I, _P, _P, _F, _I, _I, _I, _I, _P, _P, _P, _P)
 
 
 def score_homography_plain(data, descs, compound_pref, point_mask, trunc_sq,
@@ -117,20 +65,6 @@ def score_fundamental_plain(data, descs, compound_pref, point_mask, trunc_sq,
     return compound_penalized_scores(
         _squared_residual(data, descs), compound_pref, point_mask, trunc_sq,
         exponent, has_compound, magsac_levels)
-
-
-def _kernel(name: str):
-    """The launch function <name> exported by csrc/<name>.cu, with its
-    argument types declared."""
-    from progressivex_tpu_torch.kernels import _build
-
-    fn = getattr(_build.load(name), name)
-    if fn.argtypes is None:
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.restype = ci  # before argtypes, which another thread tests
-        fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp, vp, cf, ci, ci, ci, ci,
-                       vp, vp, vp, vp, vp]
-    return fn
 
 
 def _tiling(b: int, n: int, n_sms: int, rows: int = 1):
@@ -170,8 +104,7 @@ def _aligned(t):
 
 def _launch(name, data, descs, compound_pref, point_mask, trunc_sq, exponent,
             has_compound, magsac_levels):
-    """Check the CUDA inputs, launch csrc/<name>.cu's kernel over all rows,
-    count it. data [R, N, 4] f32, descs [R, B, 9] f32, compound_pref [R, N]
+    """Check the CUDA inputs, launch csrc/<name>.cu's kernel over all rows. data [R, N, 4] f32, descs [R, B, 9] f32, compound_pref [R, N]
     f32, point_mask [R, N] bool, trunc_sq [R] f32 and has_compound [R]
     bool. Returns (scores f32, inliers int32, dots f32, norms f32), each
     [R, B]."""
@@ -203,20 +136,11 @@ def _launch(name, data, descs, compound_pref, point_mask, trunc_sq, exponent,
     inliers = torch.empty(r, b, dtype=torch.int32, device=dev)
     if b == 0 or r == 0:
         return scores, inliers, dots, norms
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    # The library's CUDA runtime launches on the thread's current device,
-    # so the guard makes that the tensors' device. The annotation ties the
-    # launch to the engine's phase scopes in a profile (io/profiling.py);
-    # it launches nothing.
-    with device_guard(dev), torch.profiler.record_function(name):
-        err = _kernel(name)(
-            pts.data_ptr(), comp.data_ptr(), pm.data_ptr(), descs.data_ptr(), r, b, n,
-            tau.data_ptr(), has.data_ptr(), float(exponent), int(magsac_levels),
-            *_tiling(b, n, _sm_count(dev), r), scores.data_ptr(), inliers.data_ptr(),
-            dots.data_ptr(), norms.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    _count(name, r)
+    _build.launch(name, dev, r, _ARGS,
+                  pts.data_ptr(), comp.data_ptr(), pm.data_ptr(), descs.data_ptr(), r, b, n,
+                  tau.data_ptr(), has.data_ptr(), float(exponent), int(magsac_levels),
+                  *_tiling(b, n, _sm_count(dev), r), scores.data_ptr(), inliers.data_ptr(),
+                  dots.data_ptr(), norms.data_ptr())
     return scores, inliers, dots, norms
 
 
@@ -254,22 +178,15 @@ def score_fundamental_cuda(data, descs, compound_pref, point_mask, trunc_sq,
                         point_mask, trunc_sq, exponent, has_compound, magsac_levels)
 
 
-def _dispatch(plain, cuda, data, *args):
-    if data.device.type == "cpu":
-        return plain(data, *args)
-    if data.device.type != "cuda":
-        raise ValueError(f"no scoring kernel for device {data.device}")
-    return cuda(data, *args)
-
-
 def score_homography(data, descs, compound_pref, point_mask, trunc_sq,
                      exponent, has_compound, magsac_levels=0):
     """(scores, inliers, dots, norms) [R, B] (or [B] without the row axis)
     of homography hypotheses: the plain version for CPU tensors, the CUDA
     kernel for CUDA tensors."""
-    return _dispatch(score_homography_plain, score_homography_cuda, data, descs,
-                     compound_pref, point_mask, trunc_sq, exponent,
-                     has_compound, magsac_levels)
+    return _build.dispatch("scoring", data.device, score_homography_plain,
+                           score_homography_cuda)(
+        data, descs, compound_pref, point_mask, trunc_sq, exponent, has_compound,
+        magsac_levels)
 
 
 def score_fundamental(data, descs, compound_pref, point_mask, trunc_sq,
@@ -277,6 +194,7 @@ def score_fundamental(data, descs, compound_pref, point_mask, trunc_sq,
     """(scores, inliers, dots, norms) [R, B] (or [B] without the row axis)
     of fundamental-matrix hypotheses: the plain version for CPU tensors,
     the CUDA kernel for CUDA tensors."""
-    return _dispatch(score_fundamental_plain, score_fundamental_cuda, data,
-                     descs, compound_pref, point_mask, trunc_sq, exponent,
-                     has_compound, magsac_levels)
+    return _build.dispatch("scoring", data.device, score_fundamental_plain,
+                           score_fundamental_cuda)(
+        data, descs, compound_pref, point_mask, trunc_sq, exponent, has_compound,
+        magsac_levels)

@@ -13,12 +13,10 @@ None) split into a high and a low uint32 word, and returns y0 ^ y1 as
 or (y0, y1) as [K, count, 2] int64 uint32 values (`pair=True`, split
 and fold_in).
 
-Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
-the kernel or raises. The launch goes to the keys' device, on its current
-stream, which may be capturing a CUDA graph (core/graphs.py). `LAUNCHES`
-counts launches and `KEYS` the keys they hashed, with the scoring
-kernels' machinery (kernels/scoring.py: `recording`, `add_counts`), so
-that a graph fit counts what the eager fit counts.
+Dispatch and launch (kernels/_build.py): a CPU tensor takes the plain
+version; a CUDA tensor launches the kernel or raises. The launch goes to
+the keys' device, on its current stream, and counts in `_build.LAUNCHES`
+and `_build.UNITS` (the keys it hashed).
 """
 
 from __future__ import annotations
@@ -27,14 +25,12 @@ import ctypes
 
 import torch
 
-from progressivex_tpu_torch._device import device_guard
-from progressivex_tpu_torch.kernels import scoring
-
-LAUNCHES = {"threefry": 0}
-KEYS = {"threefry": 0}
-scoring.register(LAUNCHES, KEYS)
+from progressivex_tpu_torch.kernels import _build
 
 _M32 = 0xFFFFFFFF
+# keys, offsets, K, count, pair, out
+_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+         ctypes.c_int, ctypes.c_void_p)
 
 
 def _check(keys, count, offsets):
@@ -66,19 +62,8 @@ def threefry_plain(keys, count: int, pair: bool, offsets=None):
     return torch.where(bits > 0x7FFFFFFF, bits - (1 << 32), bits).to(torch.int32)
 
 
-def _kernel():
-    from progressivex_tpu_torch.kernels import _build
-
-    fn = _build.load("threefry").threefry
-    if fn.argtypes is None:
-        vp, ll = ctypes.c_void_p, ctypes.c_longlong
-        fn.restype = ctypes.c_int  # before argtypes, which another thread tests
-        fn.argtypes = [vp, vp, ll, ll, ctypes.c_int, vp, vp]
-    return fn
-
-
 def threefry_cuda(keys, count: int, pair: bool, offsets=None):
-    """Launch csrc/threefry.cu's kernel on CUDA tensors and count it."""
+    """Launch csrc/threefry.cu's kernel on CUDA tensors."""
     _check(keys, count, offsets)
     dev = keys.device
     k = keys.contiguous()
@@ -86,20 +71,13 @@ def threefry_cuda(keys, count: int, pair: bool, offsets=None):
     n = keys.shape[0]
     out = torch.empty(n, count, *((2,) if pair else ()), dtype=torch.int32, device=dev)
     if out.numel():
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        with device_guard(dev), torch.profiler.record_function("threefry"):
-            err = _kernel()(k.data_ptr(), None if off is None else off.data_ptr(), n,
-                            count, int(pair), out.data_ptr(), stream)
-        if err != 0:
-            raise RuntimeError(f"threefry launch failed: CUDA error {err}")
-        scoring._count("threefry", n)
+        _build.launch("threefry", dev, n, _ARGS, k.data_ptr(),
+                      None if off is None else off.data_ptr(), n, count, int(pair),
+                      out.data_ptr())
     return out.to(torch.int64) & _M32 if pair else out
 
 
 def threefry(keys, count: int, pair: bool, offsets=None):
     """The plain version for CPU keys, the CUDA kernel for CUDA keys."""
-    if keys.device.type == "cpu":
-        return threefry_plain(keys, count, pair, offsets)
-    if keys.device.type != "cuda":
-        raise ValueError(f"no threefry kernel for device {keys.device}")
-    return threefry_cuda(keys, count, pair, offsets)
+    return _build.dispatch("threefry", keys.device, threefry_plain, threefry_cuda)(
+        keys, count, pair, offsets)

@@ -20,8 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+from progressivex_tpu_torch.kernels import _build
 from progressivex_tpu_torch.kernels import linalg as klinalg
-from progressivex_tpu_torch.kernels import scoring
 
 ATOL = 2e-5
 
@@ -100,14 +100,14 @@ def test_degenerate_matrices(cuda, n):
 
 @pytest.mark.cuda
 def test_counts_one_launch_and_the_matrices(cuda, monkeypatch):
-    for counts in (klinalg.LAUNCHES, klinalg.MATRICES):
+    for counts in (_build.LAUNCHES, _build.UNITS):
         monkeypatch.setitem(counts, "eigvec_psd", 0)
     klinalg.smallest_eigvec_psd(_grams((4, 10), 9, 0).to(cuda))
     klinalg.smallest_eigvec_psd(_grams((3,), 3, 1).to(cuda), iters=2)
-    assert klinalg.LAUNCHES["eigvec_psd"] == 2
-    assert klinalg.MATRICES["eigvec_psd"] == 43
+    assert _build.LAUNCHES["eigvec_psd"] == 2
+    assert _build.UNITS["eigvec_psd"] == 43
     klinalg.smallest_eigvec_psd(_grams((3,), 3, 1))  # the CPU: no launch
-    assert klinalg.LAUNCHES["eigvec_psd"] == 2
+    assert _build.LAUNCHES["eigvec_psd"] == 2
 
 
 @pytest.mark.cuda
@@ -126,11 +126,11 @@ def test_captured_launch_replays(cuda):
     direct = klinalg.smallest_eigvec_psd(M)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side), scoring.recording():
+    with torch.cuda.stream(side), _build.recording():
         klinalg.smallest_eigvec_psd(M)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with scoring.recording() as tally, torch.cuda.stream(side):
+    with _build.recording() as tally, torch.cuda.stream(side):
         graph.capture_begin(capture_error_mode="thread_local")
         out = klinalg.smallest_eigvec_psd(M)
         graph.capture_end()
@@ -165,7 +165,7 @@ def test_a_fit_launches_once_a_call(cuda, monkeypatch, problem, scene):
 
     monkeypatch.setattr(klinalg, "smallest_eigvec_psd", counted)
     monkeypatch.setattr(klinalg, "smallest_eigvec_psd_plain", plain)
-    monkeypatch.setitem(klinalg.LAUNCHES, "eigvec_psd", 0)
+    monkeypatch.setitem(_build.LAUNCHES, "eigvec_psd", 0)
     corrs = load_corr_scene(scene)[0]
     entry = px.findHomographies if problem == "H" else px.findTwoViewMotions
     graphs.clear()
@@ -173,4 +173,4 @@ def test_a_fit_launches_once_a_call(cuda, monkeypatch, problem, scene):
         entry(corrs, **scene_kwargs(len(corrs), problem), random_seed=0)
     torch.cuda.synchronize()
     assert calls[0] > 0 and plain_on_card[0] == 0
-    assert klinalg.LAUNCHES["eigvec_psd"] == calls[0]
+    assert _build.LAUNCHES["eigvec_psd"] == calls[0]

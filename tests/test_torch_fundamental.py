@@ -285,7 +285,7 @@ def test_score_fundamental_padding_independence_and_no_build(monkeypatch):
         raise AssertionError("the CPU path must not build a kernel")
 
     monkeypatch.setattr(_build, "load", no_build)
-    before = dict(kscoring.LAUNCHES)
+    before = dict(_build.LAUNCHES)
     data, descs, compound, pmask = _score_case(n=256)
     td, tdesc, tc, tm = _t(data), _t(descs), _t(compound), _t(pmask)
     base = kscoring.score_fundamental(td, tdesc, tc, tm, TRUNC_SQ, EXPONENT, True, 4)
@@ -293,7 +293,7 @@ def test_score_fundamental_padding_independence_and_no_build(monkeypatch):
     got = kscoring.score_fundamental(bad, tdesc, tc, tm, TRUNC_SQ, EXPONENT, True, 4)
     for g, b in zip(got, base):
         np.testing.assert_allclose(g.numpy(), b.numpy(), rtol=1e-5)
-    assert kscoring.LAUNCHES == before
+    assert _build.LAUNCHES == before
     assert get_family("fundamental").scorer is kscoring.score_fundamental
 
 

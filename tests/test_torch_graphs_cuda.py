@@ -9,7 +9,7 @@ neither JAX nor the JAX package:
 - findHomographies (oldclassicswing) and findTwoViewMotions (book, four
   restarts as rows) at the AdelaideRMF protocols' keywords: every tensor of
   the FitResult (descriptors, labels, energy, round log, samples drawn,
-  models) and the kernels' LAUNCHES and ROWS the same in the eager form,
+  models) and the launch table (kernels/_build.py) the same in the eager form,
   a cold graph call (warm-up, capture, replay) and a warm one.
 - A stage that reads a value to the host inside its capture raises, and
   no result comes back from an eager run in its place.
@@ -22,7 +22,7 @@ import progressivex_tpu_torch as px
 from progressivex_tpu_torch.core import engine, graphs
 from progressivex_tpu_torch.eval.adelaide import scene_kwargs
 from progressivex_tpu_torch.io.data import load_corr_scene
-from progressivex_tpu_torch.kernels import scoring
+from progressivex_tpu_torch.kernels import _build
 
 
 @pytest.fixture
@@ -36,14 +36,14 @@ def cuda():
 
 def _run(fn, monkeypatch):
     """fn() with the launch counts zeroed: (every FitResult's tensors as
-    bytes, LAUNCHES, ROWS)."""
+    bytes, LAUNCHES, UNITS)."""
     seen, orig = [], engine.fit_rows
 
     def keep(*a, **k):
         seen.append(orig(*a, **k))
         return seen[-1]
 
-    for counts in (scoring.LAUNCHES, scoring.ROWS):
+    for counts in (_build.LAUNCHES, _build.UNITS):
         for k in counts:
             monkeypatch.setitem(counts, k, 0)
     monkeypatch.setattr(engine, "fit_rows", keep)
@@ -62,7 +62,7 @@ def _run(fn, monkeypatch):
             elif isinstance(v, torch.Tensor):
                 fields[f] = v.cpu().numpy().tobytes()
         out.append(fields)
-    return out, dict(scoring.LAUNCHES), dict(scoring.ROWS)
+    return out, dict(_build.LAUNCHES), dict(_build.UNITS)
 
 
 @pytest.mark.cuda

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from progressivex_tpu_torch.kernels import _build
 from progressivex_tpu_torch.kernels import scoring as kscoring
 from progressivex_tpu_torch.models import essential, fundamental, homography
 
@@ -61,11 +62,11 @@ def _check(got, want):
 @pytest.mark.parametrize("has_compound", [False, True])
 def test_kernel_matches_plain(cuda, magsac_levels, has_compound):
     args = _case(cuda)
-    before = kscoring.LAUNCHES["score_homography"]
+    before = _build.LAUNCHES["score_homography"]
     got = kscoring.score_homography(*args, TRUNC_SQ, EXPONENT, has_compound,
                                     magsac_levels)
     torch.cuda.synchronize()
-    assert kscoring.LAUNCHES["score_homography"] == before + 1
+    assert _build.LAUNCHES["score_homography"] == before + 1
     want = kscoring.score_homography_plain(*args, TRUNC_SQ, EXPONENT,
                                            has_compound, magsac_levels)
     _check(got, want)
@@ -99,11 +100,11 @@ def test_kernel_rejects_bad_shapes(cuda):
 @pytest.mark.parametrize("has_compound", [False, True])
 def test_fundamental_kernel_matches_plain(cuda, magsac_levels, has_compound):
     args = _case(cuda, family=fundamental, m=7)
-    before = kscoring.LAUNCHES["score_fundamental"]
+    before = _build.LAUNCHES["score_fundamental"]
     got = kscoring.score_fundamental(*args, TRUNC_SQ, EXPONENT, has_compound,
                                      magsac_levels)
     torch.cuda.synchronize()
-    assert kscoring.LAUNCHES["score_fundamental"] == before + 1
+    assert _build.LAUNCHES["score_fundamental"] == before + 1
     want = kscoring.score_fundamental_plain(*args, TRUNC_SQ, EXPONENT,
                                             has_compound, magsac_levels)
     _check(got, want)
@@ -215,7 +216,7 @@ def test_every_tiling_matches_plain(cuda, family, b, n):
     cluster ranks with no points (S = 8 at N = 100)."""
     data, descs, compound, pmask = _shape_case(cuda, family, b, n)
     name = f"score_{family}"
-    kernel = kscoring._kernel(name)
+    kernel = _build.entry_point(name, kscoring._ARGS)
     want = _score(family)[1](data, descs, compound, pmask, TRUNC_SQ, EXPONENT,
                              True, 4)
     failed = []
@@ -276,10 +277,10 @@ def test_rows_match_plain(cuda, family, rows, b, n):
     (data, descs, compound, pmask), trunc_sq, has = _rows_case(cuda, family, rows, b, n)
     cuda_fn, plain_fn = _score(family)
     name = f"score_{family}"
-    before = kscoring.LAUNCHES[name]
+    before = _build.LAUNCHES[name]
     got = cuda_fn(data, descs, compound, pmask, trunc_sq, EXPONENT, has, 4)
     torch.cuda.synchronize()
-    assert kscoring.LAUNCHES[name] == before + 1
+    assert _build.LAUNCHES[name] == before + 1
     assert got[0].shape == (rows, b)
     for r in range(rows):  # one row at a time: the plain [R, B, N] field is large
         want = plain_fn(data[r], descs[r], compound[r], pmask[r], trunc_sq[r],
@@ -297,7 +298,7 @@ def test_row_alone_equals_row_in_batch(cuda, family, b, n):
     cluster size and thread count `_tiling` picks from the row's own
     (B, N)."""
     (data, descs, compound, pmask), trunc_sq, has = _rows_case(cuda, family, 16, b, n)
-    kernel = kscoring._kernel(f"score_{family}")
+    kernel = _build.entry_point(f"score_{family}", kscoring._ARGS)
     n_sms = kscoring._sm_count(cuda)
     _, cluster, threads = kscoring._tiling(b, n, n_sms)
     for rows in (1, 16):
@@ -332,7 +333,7 @@ def test_one_row_matches_the_kernel_before_rows(cuda):
     for c, (family, b, n, _) in enumerate(golden.CASES):
         t = [torch.as_tensor(saved[f"{c}/{k}"], device=cuda)[None]
              for k in ("data", "descs", "compound", "mask")]
-        kernel = kscoring._kernel(f"score_{family}")
+        kernel = _build.entry_point(f"score_{family}", kscoring._ARGS)
         for m in (0, 4):
             for has in (False, True):
                 got = _c_launch(
@@ -452,12 +453,12 @@ def test_launch_from_a_fresh_thread(cuda, family):
             except Exception as e:  # noqa: BLE001 - re-raised below
                 errors.append(e)
 
-        before = (kscoring.LAUNCHES[name], kscoring.ROWS[name])
+        before = (_build.LAUNCHES[name], _build.UNITS[name])
         t = threading.Thread(target=launch)
         t.start()
         t.join(timeout=120)
         assert not t.is_alive() and not errors, errors
-        assert (kscoring.LAUNCHES[name], kscoring.ROWS[name]) == (before[0] + 1,
+        assert (_build.LAUNCHES[name], _build.UNITS[name]) == (before[0] + 1,
                                                                   before[1] + 1)
         assert all(o.device == dev for o in out[0])
         _check(out[0], getattr(kscoring, f"{name}_plain")(*args, TRUNC_SQ, EXPONENT,

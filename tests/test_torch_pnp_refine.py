@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from progressivex_tpu_torch.kernels import _build
 from progressivex_tpu_torch.kernels import pnp as kpnp
 from progressivex_tpu_torch.models import pnp as tpnp
 from progressivex_tpu_torch.models.base import row_view
@@ -90,13 +91,13 @@ def test_cpu_takes_the_plain_path_bit_for_bit(dtype, row_axis, p):
     weights[0, 0, 2:] = 0.0  # fewer than 3 positive weights: the start back
     if not row_axis:
         data, weights, inits = data[1], weights[1], inits[1]
-    before = dict(kpnp.LAUNCHES)
+    before = dict(_build.LAUNCHES)
     want_d, want_ok = _before(data, weights, inits)
     for fn in (kpnp.refine_plain, tpnp._refine, tpnp.PNP.refine_solver):
         got_d, got_ok = fn(data, weights, inits)
         assert got_d.shape == inits.shape and got_ok.shape == inits.shape[:-1]
         assert _bits_equal(got_d, want_d) and torch.equal(got_ok, want_ok)
-    assert kpnp.LAUNCHES == before  # the plain version is no launch
+    assert _build.LAUNCHES == before  # the plain version is no launch
     assert bool(want_ok.any())
     if row_axis:
         assert not bool(want_ok[0, 0])

@@ -24,8 +24,8 @@ import numpy as np
 import pytest
 import torch
 
+from progressivex_tpu_torch.kernels import _build
 from progressivex_tpu_torch.kernels import pnp as kpnp
-from progressivex_tpu_torch.kernels import scoring
 
 R_ATOL = 1e-4
 T_RTOL = 1e-4
@@ -74,7 +74,7 @@ def pose_fit():
     mp.setattr(kpnp, "refine", refine)
     mp.setattr(kpnp, "refine_cuda", refine_cuda)
     mp.setattr(kpnp, "refine_plain", refine_plain)
-    for counts in (kpnp.LAUNCHES, kpnp.PROBLEMS):
+    for counts in (_build.LAUNCHES, _build.UNITS):
         mp.setitem(counts, "pnp_refine", 0)
     try:
         graphs.clear()
@@ -82,8 +82,8 @@ def pose_fit():
             px.find6DPoses(*cell.family.single_args(scene.data), **cell.config["protocol"],
                            random_seed=request.random_seed, device="cuda")
         torch.cuda.synchronize()
-        seen["launches"] = kpnp.LAUNCHES["pnp_refine"]
-        seen["problems"] = kpnp.PROBLEMS["pnp_refine"]
+        seen["launches"] = _build.LAUNCHES["pnp_refine"]
+        seen["problems"] = _build.UNITS["pnp_refine"]
     finally:
         mp.undo()
     return seen
@@ -216,7 +216,7 @@ def test_routing_flattens_the_middle_axes(cuda, monkeypatch):
     the plain version's results."""
     from progressivex_tpu_torch.models import pnp as tpnp
 
-    for counts in (kpnp.LAUNCHES, kpnp.PROBLEMS):
+    for counts in (_build.LAUNCHES, _build.UNITS):
         monkeypatch.setitem(counts, "pnp_refine", 0)
     data, weights, inits = (x.to(cuda) for x in _problem(2, 6, 384, 3))
     w4, i4 = weights.reshape(2, 2, 3, 384), inits.reshape(2, 2, 3, 12)
@@ -224,7 +224,7 @@ def test_routing_flattens_the_middle_axes(cuda, monkeypatch):
     _compare(got, kpnp.refine_plain(data, w4, i4))
     got = tpnp._refine(data[0], weights[0], inits[0])
     _compare(got, kpnp.refine_plain(data[0], weights[0], inits[0]))
-    assert kpnp.LAUNCHES["pnp_refine"] == 2 and kpnp.PROBLEMS["pnp_refine"] == 18
+    assert _build.LAUNCHES["pnp_refine"] == 2 and _build.UNITS["pnp_refine"] == 18
 
 
 @pytest.mark.cuda
@@ -246,11 +246,11 @@ def test_captured_launch_replays(cuda):
     direct = kpnp.refine(data, weights, inits)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side), scoring.recording():
+    with torch.cuda.stream(side), _build.recording():
         kpnp.refine(data, weights, inits)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with scoring.recording() as tally, torch.cuda.stream(side):
+    with _build.recording() as tally, torch.cuda.stream(side):
         graph.capture_begin(capture_error_mode="thread_local")
         out, ok = kpnp.refine(data, weights, inits)
         graph.capture_end()

@@ -118,11 +118,11 @@ def test_cpu_tensor_never_needs_the_compiler(monkeypatch):
         raise AssertionError("the CPU path must not build a kernel")
 
     monkeypatch.setattr(_build, "load", no_build)
-    before = dict(kscoring.LAUNCHES)
+    before = dict(_build.LAUNCHES)
     data, descs, compound, pmask = _case(b=8, n=64)
     kscoring.score_homography(*_torch_inputs(data, descs, compound, pmask),
                               TRUNC_SQ, EXPONENT, True, 4)
-    assert kscoring.LAUNCHES == before
+    assert _build.LAUNCHES == before
 
 
 @pytest.mark.parametrize("b, n", [

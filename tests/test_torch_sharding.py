@@ -351,12 +351,12 @@ def fast_switching():
 
 
 def test_launch_counts_exact_under_threads(monkeypatch, fast_switching):
-    """`_launch` with its C call stubbed, from 8 threads at once: every
-    launch is counted, and every row."""
+    """The scoring kernels' `_launch` with its C call stubbed, from 8
+    threads at once: every launch is counted, and every row."""
     class Stream:
         cuda_stream = 0
 
-    monkeypatch.setattr(kscoring, "_kernel", lambda name: lambda *args: 0)
+    monkeypatch.setattr(_build, "entry_point", lambda name, argtypes: lambda *args: 0)
     monkeypatch.setattr(kscoring, "_sm_count", lambda dev: 132)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: Stream())
     r, n, b = 3, 16, 8
@@ -364,7 +364,7 @@ def test_launch_counts_exact_under_threads(monkeypatch, fast_switching):
             torch.ones(r, n, dtype=torch.bool), torch.ones(r), 2.0,
             torch.zeros(r, dtype=torch.bool), 0)
     name = "score_homography"
-    before = (kscoring.LAUNCHES[name], kscoring.ROWS[name])
+    before = (_build.LAUNCHES[name], _build.UNITS[name])
     n_threads, per_thread = 8, 300
 
     def work():
@@ -377,8 +377,8 @@ def test_launch_counts_exact_under_threads(monkeypatch, fast_switching):
     for t in threads:
         t.join(timeout=60)
         assert not t.is_alive()
-    assert kscoring.LAUNCHES[name] - before[0] == n_threads * per_thread
-    assert kscoring.ROWS[name] - before[1] == n_threads * per_thread * r
+    assert _build.LAUNCHES[name] - before[0] == n_threads * per_thread
+    assert _build.UNITS[name] - before[1] == n_threads * per_thread * r
 
 
 def test_build_loads_a_library_once_under_threads(monkeypatch, fast_switching):

@@ -86,7 +86,9 @@ def test_a_recorded_call_nests_under_one_id():
     assert call.parent is None and call.call == call.id and call.counts == {"scenes": 1}
     names = [s.name for s in sorted(spans, key=lambda s: s.start_ns)]
     assert names[:3] == ["progx.call", "progx.inputs", "progx.fit"]
-    assert set(names) == {"progx.call", "progx.inputs", "progx.fit", "progx.results"}
+    # an eager fit (the CPU) reads to the host where a graph fit does
+    assert set(names) == {"progx.call", "progx.inputs", "progx.fit", "progx.read.any_pearl",
+                          "progx.read.all_done", "progx.results"}
     by_id = {s.id: s for s in spans}
     assert len(by_id) == len(spans)
     for s in spans:
@@ -97,6 +99,7 @@ def test_a_recorded_call_nests_under_one_id():
             assert parent.start_ns <= s.start_ns and s.end_ns <= parent.end_ns
     fit, = _by_name(spans, "progx.fit")
     assert fit.parent == call.id and fit.counts == {}
+    assert all(s.parent == fit.id for s in spans if s.name.startswith("progx.read."))
     assert _by_name(spans, "progx.inputs")[0].counts == {}
 
 

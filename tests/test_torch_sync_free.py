@@ -11,11 +11,12 @@ core/graphs.py), checked on the CPU.
   through it); `icm_sweeps` and `pearl_run` on their own likewise.
 - `icm_sweeps` gives the same labels and energy with and without its early
   exit on random costs.
-- core/graphs.py's dataflow: its stages with every graph replaced by an
-  eager call that writes into the same buffers (a replay's semantics)
-  give the eager fit's FitResult bit for bit, with live progress too.
+- core/graphs.py's dataflow: engine.fit_rows' stages through the graph
+  runner with every graph replaced by an eager call that writes into the
+  same buffers (a replay's semantics) give the eager fit's FitResult bit
+  for bit, with live progress and with two hypothesis replicas too.
 - `ops/linalg.svd3_jacobi`, the card's SVD, against torch.linalg.svd.
-- The launch counters' recording (kernels/scoring.py).
+- The launch table's recording (kernels/_build.py).
 
 No JAX program is compiled here.
 """
@@ -33,7 +34,7 @@ from progressivex_tpu_torch.core.config import EngineConfig, make_params, rows_p
 from progressivex_tpu_torch.core.pearl import pearl_run
 from progressivex_tpu_torch.eval import extras
 from progressivex_tpu_torch.io.data import load_corr_scene, load_tless_scene
-from progressivex_tpu_torch.kernels import scoring
+from progressivex_tpu_torch.kernels import _build
 from progressivex_tpu_torch.models import get_family
 from progressivex_tpu_torch.ops import labeling, linalg, prng
 
@@ -193,10 +194,10 @@ def _fields(res):
 
 @pytest.fixture
 def emulated_graphs(monkeypatch):
-    """core/graphs.py on the CPU, with every CUDA graph replaced by an
-    eager call of its function that writes into the graph's output
-    buffers, as a replay writes them; `graphs.eager()` still runs the
-    eager fit."""
+    """The graph runner (core/graphs.py's `_Graphs`) on the CPU, with every
+    CUDA graph replaced by an eager call of its function that writes into
+    the graph's output buffers, as a replay writes them; `graphs.eager()`
+    still runs the eager runner."""
     def capture(self, name, fn, outs):
         warm = fn()
         bufs = graphs._map(torch.empty_like, warm) if outs is None else outs(warm)
@@ -232,17 +233,39 @@ def _f_restarts():
     return seen[0]
 
 
-@pytest.mark.parametrize("case", ["banded PROSAC", "unroll_rounds", "F restarts"])
+def _hyp_fit(scenes):
+    """A homography fit of two rows on engine.fit_rows with two replicas of
+    each row's proposal on the fit's device (cfg.hyp_axis), on the first
+    256 points of `scenes`."""
+    data = torch.as_tensor(np.stack([_corrs(s, 256) for s in scenes]), dtype=torch.float32)
+    cfg = EngineConfig(family="homography", n_hypotheses=32, max_rounds=3,
+                       pearl_iters=2, icm_sweeps=2, final_relabel=2, hyp_axis="hyp")
+    params = make_params(threshold=4.0, confidence=0.5, min_inliers=10, n_valid=256,
+                         neighborhood_radius=200.0, max_tanimoto=0.4)
+    keys = torch.stack([torch.stack([prng.key(10 * r + h) for h in range(2)])
+                        for r in range(2)])
+    return engine.fit_rows(get_family("homography"), cfg, params, data,
+                           torch.ones(2, 256, dtype=torch.bool), torch.ones(2, 256),
+                           keys=keys)
+
+
+@pytest.mark.parametrize("case", ["banded PROSAC", "unroll_rounds", "F restarts",
+                                  "hyp replicas"])
 def test_graph_dataflow_matches_the_eager_fit(case, emulated_graphs):
     if case == "F restarts":
-        fit = _f_restarts
+        fits = [_f_restarts] * 2
+    elif case == "hyp replicas":
+        # The second call replays the first call's graphs on other data: a
+        # proposal whose replicas copied the first call's inputs would
+        # score the wrong points.
+        fits = [lambda: _hyp_fit(["oldclassicswing", "unionhouse"]),
+                lambda: _hyp_fit(["unionhouse", "unihouse"])]
     else:
-        def fit():
-            return _banded_fit(unroll_rounds=case == "unroll_rounds")
+        fits = [lambda: _banded_fit(unroll_rounds=case == "unroll_rounds")] * 2
     with graphs.eager():
-        want = _fields(fit())
+        want = [_fields(fit()) for fit in fits]
     # the first call builds the stages, the second replays them
-    assert [_fields(fit()) for _ in range(2)] == [want, want]
+    assert [_fields(fit()) for fit in fits] == want
 
 
 def test_graph_dataflow_live_progress(emulated_graphs):
@@ -284,17 +307,17 @@ def test_svd3_jacobi_against_torch():
 
 
 def test_launch_counts_are_recorded_for_replays(monkeypatch):
-    for counts in (scoring.LAUNCHES, scoring.ROWS):
+    for counts in (_build.LAUNCHES, _build.UNITS):
         monkeypatch.setitem(counts, "score_homography", 0)
-    with scoring.recording() as tally:
-        scoring._count("score_homography", 3)
-        scoring._count("score_homography", 3)
+    with _build.recording() as tally:
+        _build._count("score_homography", 3)
+        _build._count("score_homography", 3)
     assert tally == [("score_homography", 3)] * 2
-    assert scoring.LAUNCHES["score_homography"] == 0
-    scoring.add_counts(tally)
-    scoring._count("score_homography", 2)
-    assert scoring.LAUNCHES["score_homography"] == 3
-    assert scoring.ROWS["score_homography"] == 8
+    assert _build.LAUNCHES["score_homography"] == 0
+    _build.add_counts(tally)
+    _build._count("score_homography", 2)
+    assert _build.LAUNCHES["score_homography"] == 3
+    assert _build.UNITS["score_homography"] == 8
 
 
 def test_graphs_apply_only_on_the_card():
@@ -315,10 +338,10 @@ def test_eager_config_fields_are_kept():
 
 @pytest.mark.parametrize("case", ["banded PROSAC", "F restarts"])
 def test_graph_fit_reads_nothing_before_the_rounds(case, emulated_graphs, monkeypatch):
-    """core/graphs.py's fit reads nothing to the host from its call until
-    its rounds start (the draw of the samples from the rows' keys runs in
-    the `start` graph), then at most two values a round (`any_pearl`,
-    `all_done`)."""
+    """A graph fit reads nothing to the host from the choice of its runner
+    until its rounds start (the draw of the samples from the rows' keys
+    runs in the `start` graph), then at most two values a round
+    (`any_pearl`, `all_done`)."""
     saved = {name: getattr(torch.Tensor, name) for name in _READS}
     reads = {"before": 0, "rounds": 0}
     where = ["outside"]
@@ -330,12 +353,14 @@ def test_graph_fit_reads_nothing_before_the_rounds(case, emulated_graphs, monkey
             return saved[name](self, *a, **k)
         return read
 
-    fit_rows, stage = graphs.fit_rows, graphs._Graphs.stage
+    runner, stage = graphs.runner, graphs._Graphs.stage
 
-    def watched_fit_rows(*a, **k):
+    @contextlib.contextmanager
+    def watched_runner(*a, **k):
         where[0] = "before"
         try:
-            return fit_rows(*a, **k)
+            with runner(*a, **k) as run:
+                yield run
         finally:
             where[0] = "outside"
 
@@ -344,7 +369,7 @@ def test_graph_fit_reads_nothing_before_the_rounds(case, emulated_graphs, monkey
             where[0] = "rounds" if name == "propose" else "finish"
         return stage(self, name, fn, outs)
 
-    monkeypatch.setattr(graphs, "fit_rows", watched_fit_rows)
+    monkeypatch.setattr(graphs, "runner", watched_runner)
     monkeypatch.setattr(graphs._Graphs, "stage", watched_stage)
     fit = _f_restarts if case == "F restarts" else _banded_fit
     fit()  # builds the stages

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from progressivex_tpu_torch.kernels import _build
 from progressivex_tpu_torch.kernels import threefry as kthreefry
 from progressivex_tpu_torch.ops import prng, sampling
 
@@ -33,9 +34,9 @@ def cuda():
 def test_kernel_matches_plain(cuda, n_keys, count, pair):
     r = np.random.default_rng(n_keys + count)
     keys = torch.as_tensor(r.integers(0, 2**32, (n_keys, 2)), device=cuda)
-    before = kthreefry.LAUNCHES["threefry"]
+    before = _build.LAUNCHES["threefry"]
     got = kthreefry.threefry(keys, count, pair)
-    assert kthreefry.LAUNCHES["threefry"] == before + 1
+    assert _build.LAUNCHES["threefry"] == before + 1
     want = kthreefry.threefry_plain(keys, count, pair)
     assert got.dtype == want.dtype and got.shape == want.shape
     assert torch.equal(got, want)
@@ -70,17 +71,15 @@ def test_draw_on_the_card_equals_the_cpu(cuda, sampler_id):
 def test_captured_launch_replays(cuda):
     """A launch captured in a CUDA graph replays the direct launch's bits,
     and the capture's tally is one launch."""
-    from progressivex_tpu_torch.kernels import scoring
-
     keys = prng.split(prng.key(5).to(cuda), 16)
     direct = kthreefry.threefry(keys, 1000, False)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side), scoring.recording():
+    with torch.cuda.stream(side), _build.recording():
         kthreefry.threefry(keys, 1000, False)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with scoring.recording() as tally, torch.cuda.stream(side):
+    with _build.recording() as tally, torch.cuda.stream(side):
         graph.capture_begin(capture_error_mode="thread_local")
         out = kthreefry.threefry(keys, 1000, False)
         graph.capture_end()

@@ -1,9 +1,10 @@
 """Phase 10 of `chip_smoke.py` (the compiled fit against the eager fit)
 in the checkout of the current directory, plus a count of the host reads
-of one warm graph fit of each path: before its rounds (from
-`engine.fit_rows`' call to its first round graph), in its rounds and
-after. A host read is a call of torch.Tensor's __bool__, __int__,
-__float__, __index__, item, tolist, cpu or numpy on a CUDA tensor.
+of one warm graph fit of each path (chip_smoke.py's `_host_reads`):
+before its rounds (from `engine.fit_rows`' call to its first round
+graph), in its rounds and after. A host read is a call of torch.Tensor's
+__bool__, __int__, __float__, __index__, item, tolist, cpu or numpy on a
+CUDA tensor.
 
   cd <checkout> && python3 <path to>/tools/phase10_reads.py
 
@@ -26,53 +27,7 @@ sys.path.insert(0, root)
 spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(root, "chip_smoke.py"))
 cs = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(cs)
-from progressivex_tpu_torch.core import engine, graphs
 from progressivex_tpu_torch.kernels import _build
-
-READS = ("__bool__", "__int__", "__float__", "__index__", "item", "tolist", "cpu", "numpy")
-
-
-def host_reads(call):
-    counts = {"before": 0, "rounds": 0, "after": 0, "outside": 0}
-    where = ["outside"]
-    saved = {n: getattr(torch.Tensor, n) for n in READS}
-
-    def counting(n):
-        fn = saved[n]
-
-        def read(self, *a, **k):
-            if self.is_cuda:
-                counts[where[0]] += 1
-            return fn(self, *a, **k)
-        return read
-
-    fit_rows, stage = engine.fit_rows, graphs._Graphs.stage
-
-    def w_fit(*a, **k):
-        where[0] = "before"
-        try:
-            return fit_rows(*a, **k)
-        finally:
-            where[0] = "outside"
-
-    def w_stage(self, name, fn, outs=None):
-        if name in ("propose", "rounds") and where[0] == "before":
-            where[0] = "rounds"
-        elif name == "finish":
-            where[0] = "after"
-        return stage(self, name, fn, outs)
-
-    engine.fit_rows, graphs._Graphs.stage = w_fit, w_stage
-    for n in READS:
-        setattr(torch.Tensor, n, counting(n))
-    try:
-        call()
-    finally:
-        for n, fn in saved.items():
-            setattr(torch.Tensor, n, fn)
-        engine.fit_rows, graphs._Graphs.stage = fit_rows, stage
-    return counts
-
 
 print(cs._smi(), flush=True)
 _build.build_all()
@@ -83,7 +38,7 @@ reads = {}
 for label, call in cs._compiled_paths():
     call()
     torch.cuda.synchronize()
-    reads[label] = host_reads(call)
+    reads[label] = cs._host_reads(torch, call)
 for row in res["paths"]:
     out = {k: row.get(k) for k in ("path", "eager_s", "cold_s", "warmup_s", "capture_s",
                                     "warm_s", "graphs", "round_passes",

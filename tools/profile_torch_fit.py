@@ -12,7 +12,7 @@ seed 0, at the keywords of eval/adelaide.scene_kwargs and eval/extras, runs one 
 profiler (wall seconds) and one under torch.profiler (CPU + CUDA
 activities), and reports the number of device operations (kernels,
 copies, sets), their summed device time, the device's busy share of the
-profiled wall time, the scoring kernels' launches, and the ten device
+profiled wall time, every kernel's launches (kernels/_build.py), and the ten device
 operations that took the most time (the full report goes to FILE.json
 with --out). Each path is warmed up by one fit of its first scene, so a
 fit runs as replays of its CUDA graphs (core/graphs.py), the port's
@@ -50,7 +50,7 @@ def main():
     from progressivex_tpu_torch.io.data import (ADELAIDE_F_SCENES, ADELAIDE_H_SCENES,
                                                 load_corr_scene, load_tless_scene)
     from progressivex_tpu_torch.io.profiling import device_operations
-    from progressivex_tpu_torch.kernels.scoring import LAUNCHES
+    from progressivex_tpu_torch.kernels._build import LAUNCHES
 
     def adelaide(problem, scene):
         corrs, _ = load_corr_scene(scene)

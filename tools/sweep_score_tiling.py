@@ -62,7 +62,7 @@ def main():
         if trunc_sq is None:
             trunc_sq = float(truncated_sq_threshold(0.75))
         family = get_family(name.removeprefix("score_"))
-        kernel = ks._kernel(name)
+        kernel = _build.entry_point(name, ks._ARGS)
         data, pmask, compound, n = chip_smoke._scene_tensors(torch, dev, scene, rng)
         n_pad = data.shape[0]
         descs = chip_smoke._minimal_descs(torch, family, data, n, max(sizes), rng)
