@@ -8,9 +8,11 @@ Phases, each of which raises on failure:
      one nvcc per source, all at once; writes the synthetic 19 H + 18 F
      scene datasets under build/synth and checks their bytes against the
      files the JAX package's reference ran on;
-  2. holds each kernel (score_homography, score_fundamental) against its
-     plain torch version on the card at its path's shapes, and times both
-     beside the launch floor (one one-element kernel, timed the same way);
+  2. holds each scoring kernel (score_homography, score_fundamental,
+     score_pnp) against its plain torch version on the card at its path's
+     shapes (score_pnp at the pose fit's [3 x 1600 | 4, 2304] on T-LESS),
+     and times both beside the launch floor (one one-element kernel, timed
+     the same way);
      then the draws ("2 draws", `phase_draws`): every path of phases 3, 5,
      7, 8 and 10 run eagerly, each draw of its samples on the card
      (engine.draw: the JAX package's threefry keys and samplers) against
@@ -32,7 +34,8 @@ Phases, each of which raises on failure:
      findLines on the synthetic 3180-point lines scene, findVanishingPoints
      on the synthetic 216-segment VP scene, and find6DPoses on the bundled
      T-LESS scene at seeds 0, 1 and 2 (these three reach no kernel in the
-     JAX package and launch no scoring kernel here); checks each scene's
+     JAX package; lines and VPs launch no scoring kernel here, poses
+     score_pnp alone, 3 launches of 3 restarts a round); checks each scene's
      misclassification against the JAX package's, and T-LESS's mean pose
      errors against tests/test_pose6d.py's anchors or the JAX package's
      errors at the same seeds on the card, whichever is larger; then
@@ -118,7 +121,8 @@ Phases 3-9 run the fits as CUDA graphs, the port's default on the card;
 phase 6's phase times, phase 7's timed moves and phase 9's profiled fit
 run eagerly (core/graphs.eager), since they time operations inside a fit.
 Phase 2 also captures one launch of each kernel in a CUDA graph at a
-main-path shape (H [1 x 256, 2304], F [4 x 1536, 256]) and holds the
+main-path shape (H [1 x 256, 2304], F [4 x 1536, 256], PnP [3 x 1600,
+2304]) and holds the
 replay bit for bit to a direct launch, and its tally to one launch. It
 also holds each kernel against its plain version over rows, at
 the shapes the batched front ends give it, and score_fundamental at the
@@ -495,8 +499,13 @@ def _device_ms(fn, reps=20):
 # Operations of each family's residual per (hypothesis, valid point).
 # Homography, 20: projection 12 (6 mul, 6 add), the |pz| test 1, transfer
 # error 7 (2 div, 2 sub, 2 mul, 1 add). Fundamental, 34: F x1 12, F^T x2
-# 8, num 4, den 7, square, max and divide 3.
-RESIDUAL_OPS = {"homography": 20, "fundamental": 34}
+# 8, num 4, den 7, square, max and divide 3. PnP, 27: projection 18 (9
+# mul, 9 add), the |qz| test 1, the error 7, the depth test 1.
+RESIDUAL_OPS = {"homography": 20, "fundamental": 34, "pnp": 27}
+# Bytes of a point (its coordinates, f32 compound, the mask byte) and of a
+# descriptor, by family: float4 and 3 x 3 but for PnP's 5 floats and 3 x 4.
+POINT_BYTES = {"pnp": 25}
+DESC_BYTES = {"pnp": 48}
 
 
 def _score_bound(b, n_valid, n_pts, magsac_levels, family):
@@ -508,12 +517,13 @@ def _score_bound(b, n_valid, n_pts, magsac_levels, family):
     add; norm: mul, add); with m MAGSAC levels, 4 m + 1 more (div, sub,
     max, add per level, one scale by 1/m). Masked points are skipped, so
     only valid points count. Bytes a row: 21 per point (float4 of
-    coordinates, f32 compound, the bool mask as one byte), 36 per
-    descriptor and 16 of outputs per hypothesis, and 5 of the row's
-    threshold and compound flag."""
+    coordinates, f32 compound, the bool mask as one byte; 25 for PnP's
+    five floats), 36 per descriptor (48 for PnP) and 16 of outputs per
+    hypothesis, and 5 of the row's threshold and compound flag."""
     flops_pair = RESIDUAL_OPS[family] + 12 + (4 * magsac_levels + 1 if magsac_levels else 0)
     flops = b * sum(n_valid) * flops_pair
-    nbytes = len(n_valid) * (n_pts * 21 + b * (36 + 16) + 5)
+    nbytes = len(n_valid) * (n_pts * POINT_BYTES.get(family, 21)
+                             + b * (DESC_BYTES.get(family, 36) + 16) + 5)
     t_ops = flops / PEAK_F32_FLOP_S * 1e3
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -528,11 +538,13 @@ def _scene_tensors(torch, dev, scene, rng):
     homographies near the identity (0.5 px noise) and 30% outliers in a
     1000 px square, padded to the largest pad level, 7680. "synthH:name"
     and "synthF:name" are scenes of the synthetic datasets, padded to
-    their bucket of the dataset pass."""
-    from progressivex_tpu_torch.api import _pad_to, essential_inputs
+    their bucket of the dataset pass. "tless" is the bundled T-LESS scene
+    as find6DPoses fits it: rows (x, y, X, Y, Z) normalized by K^-1
+    (data [N, 5]), 1,886 of them padded to 2,304."""
+    from progressivex_tpu_torch.api import _pad_to, essential_inputs, pose_inputs
     from progressivex_tpu_torch.eval.adelaide import _bucket_size
-    from progressivex_tpu_torch.eval.extras import gauntlet_camera, gauntlet_scene
-    from progressivex_tpu_torch.io.data import load_corr_scene
+    from progressivex_tpu_torch.eval.extras import TLESS_KW, gauntlet_camera, gauntlet_scene
+    from progressivex_tpu_torch.io.data import load_corr_scene, load_tless_scene
 
     pad = _pad_to
     if scene == SYNTHETIC:
@@ -545,10 +557,13 @@ def _scene_tensors(torch, dev, scene, rng):
         problem, _, name = scene[5:].partition(":")
         corrs, _ = load_corr_scene(name, root=_synth_roots()[problem])
         pad = _bucket_size
+    elif scene == "tless":
+        xy, xyz, K, _ = load_tless_scene()
+        corrs = pose_inputs(xy, xyz, K, TLESS_KW["threshold"])[0]
     else:
         corrs, _ = load_corr_scene(scene)
     n, n_pad = len(corrs), pad(len(corrs))
-    data = torch.zeros(n_pad, 4, dtype=torch.float32, device=dev)
+    data = torch.zeros(n_pad, corrs.shape[1], dtype=torch.float32, device=dev)
     data[:n] = torch.as_tensor(corrs, dtype=torch.float32, device=dev)
     pmask = torch.arange(n_pad, device=dev) < n
     compound = torch.as_tensor(rng.uniform(0, 1, n_pad), dtype=torch.float32,
@@ -631,11 +646,21 @@ def _minimal_descs(torch, family, data, n, count, rng):
         idx = torch.as_tensor(rng.integers(0, n, (4096, family.sample_size)),
                               device=data.device)
         descs, valid = family.minimal_solver_batched(data[idx])
-        descs = descs.reshape(-1, 9)[valid.reshape(-1)]
+        descs = descs.reshape(-1, family.desc_dim)[valid.reshape(-1)]
         found.append(descs[torch.isfinite(descs).all(1)])
         if sum(len(f) for f in found) >= count:
             return torch.cat(found)[:count].contiguous()
     raise AssertionError("too few valid minimal solves")
+
+
+def _tless_threshold():
+    """find6DPoses' threshold on the T-LESS scene (TLESS_KW's 4 px) over
+    the mean focal length, as the front end gives it to the fit."""
+    from progressivex_tpu_torch.eval.extras import TLESS_KW
+    from progressivex_tpu_torch.io.data import load_tless_scene
+
+    K = load_tless_scene()[2]
+    return TLESS_KW["threshold"] / (0.5 * (K[0, 0] + K[1, 1]))
 
 
 def _check_and_time(torch, name, data, descs, compound, pmask, trunc_sq, exponent,
@@ -853,7 +878,9 @@ def phase_kernel(torch, dev):
     [64 x 1536, 256 | 384] (16 lanes x 4 restarts); then both at the hyp
     axis's shapes: H [4 x 256, 2304] (four replicas of unihouse) and F
     [8 x 1536, 256] (two replicas of book's four restarts), each row
-    scoring descriptors of its own."""
+    scoring descriptors of its own; then score_pnp at the pose fit's
+    shapes on T-LESS, [3 x 1600, 2304] (the proposal's field: 3 restarts
+    x 400 P3P samples x 4 roots) and [3 x 4, 2304] (the LO's candidates)."""
     from progressivex_tpu_torch.core.config import truncated_sq_threshold
 
     rng = np.random.default_rng(0)
@@ -903,14 +930,21 @@ def phase_kernel(torch, dev):
                torch, dev, "score_homography", ("unihouse",) * 4, 1, 256, 36.0, 2.0, rng),
            "score_fundamental": _row_kernel_cases(
                torch, dev, "score_fundamental", ("book",) * 8, 1, 1536, tau_f, 1.0, rng)}
+    # The pose fit (find6DPoses, T-LESS): 3 restarts as rows, the 4 px
+    # threshold over the mean focal length.
+    tau_p = float(truncated_sq_threshold(_tless_threshold()))
+    pose = (_row_kernel_cases(torch, dev, "score_pnp", ("tless",), 3, 1600, tau_p, 2.0, rng)
+            + _row_kernel_cases(torch, dev, "score_pnp", ("tless",), 3, 4, tau_p, 2.0, rng))
     # One launch of each kernel captured in a CUDA graph (the compiled
     # fit's form, core/graphs.py) at a main-path shape, replayed.
     captured = {
         "score_homography": _captured_launch_case(
             torch, dev, "score_homography", ("unihouse",), 1, 256, 36.0, 2.0, rng),
         "score_fundamental": _captured_launch_case(
-            torch, dev, "score_fundamental", ("book",), 4, 1536, tau_f, 1.0, rng)}
-    return out, rows, essential, synth, hyp, captured
+            torch, dev, "score_fundamental", ("book",), 4, 1536, tau_f, 1.0, rng),
+        "score_pnp": _captured_launch_case(
+            torch, dev, "score_pnp", ("tless",), 3, 1600, tau_p, 2.0, rng)}
+    return out, rows, essential, synth, hyp, captured, pose
 
 
 def _captured_launch_case(torch, dev, name, lane_scenes, restarts, b, trunc_sq,
@@ -1395,6 +1429,34 @@ def _refine_line(refine_phase, launches):
     }
 
 
+def _pnp_line(pose_cases, captured, launches):
+    """The score_pnp kernel's entry of the {"kernels": ...} line: its
+    launches in phase 3 P's fits, its time beside its bound and the plain
+    version's at the proposal's [3 x 1600, 2304] (m = 0, the pose path's),
+    and every timed case."""
+    main_case = next(c for c in pose_cases if c["shape"] == [1600, 2304]
+                     and c["magsac_levels"] == 0 and all(c["has_compound"]))
+    return {
+        "name": "score_pnp", "route": "cuda",
+        "source": "progressivex_tpu_torch/csrc/score_pnp.cu",
+        "replaces": "progressivex_tpu/core/engine.py:189-195",
+        "replaces_note": "compound_penalized_scores over the pose family's vmapped "
+                         "squared_residual, fused by XLA; no Pallas kernel",
+        "launches": launches,
+        "max_abs_err": max(c["max_abs_err"] for c in pose_cases),
+        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
+        "library_ms": None, "shape": main_case["shape"], "rows": main_case["rows"],
+        "tiling": main_case["tiling"], "wrapper_ms": main_case["wrapper_ms"],
+        "launch_floor_ms": main_case["launch_floor_ms"],
+        "captured_launch_bit_equal": all(captured["bit_equal"]),
+        "timed": [{k: c[k] for k in ("rows", "shape", "magsac_levels", "has_compound",
+                                      "tiling", "ms", "plain_ms", "bound_ms", "bound_by",
+                                      "launch_floor_ms", "max_abs_err")}
+                  for c in pose_cases],
+    }
+
+
 def _draw_paths(torch):
     """(label, call) of phase 2's draws: phase 10's paths (the single-scene
     paths of phase 3, phase 5's batched H and F, the dataset pass's H 2304
@@ -1741,17 +1803,41 @@ def _refine_launches(label):
     return n
 
 
-def _no_launches(label):
-    """The scoring kernels' launch counts after a path that reaches none,
-    which must all be 0."""
+def _no_launches(label, own=None):
+    """The scoring kernels' launch counts after a path: every kernel but
+    the path's own (`own`: score_pnp on a pose path) must show 0, and the
+    path's own must have run."""
     from progressivex_tpu_torch.kernels._build import LAUNCHES
     from progressivex_tpu_torch.kernels.scoring import KERNELS
 
     launches = {k: LAUNCHES[k] for k in KERNELS}
-    if any(launches.values()):
+    if any(v for k, v in launches.items() if k != own):
         raise AssertionError(f"{label}: a scoring kernel ran on a path that has "
-                             f"none: {launches}")
+                             f"{own or 'none'}: {launches}")
+    if own is not None and launches[own] <= 0:
+        raise AssertionError(f"{label}: {own} never launched")
     return launches
+
+
+def _pnp_launches(label, spans):
+    """score_pnp's launches and rows since `_zero_launches` against the
+    rounds the recorded `spans` show (one `progx.read.any_pearl` a round,
+    in the graph and the eager form): a pose fit's proposal scores its
+    field once and its LO candidates once a step (EngineConfig.lo_steps,
+    2), each launch over the fit's 3 restarts as rows."""
+    import dataclasses
+
+    from progressivex_tpu_torch.core.config import EngineConfig
+    from progressivex_tpu_torch.kernels._build import LAUNCHES, UNITS
+
+    rounds = sum(sp.name == "progx.read.any_pearl" for sp in spans)
+    lo_steps = {f.name: f.default for f in dataclasses.fields(EngineConfig)}["lo_steps"]
+    per_round = 1 + lo_steps
+    got = {"rounds": rounds, "launches": LAUNCHES["score_pnp"], "rows": UNITS["score_pnp"]}
+    if rounds < 1 or got["launches"] != per_round * rounds or got["rows"] != 3 * got["launches"]:
+        raise AssertionError(f"{label}: score_pnp {got}, not {per_round} launches of "
+                             "3 rows a round")
+    return got
 
 
 def _new_scene(name):
@@ -1827,22 +1913,25 @@ def phase_new_path(torch, problem):
 
 def phase_tless(torch):
     """find6DPoses on T-LESS at TLESS_SEEDS, the launch counts set to 0
-    just before each seed and read after (the path reaches no scoring
-    kernel; threefry, eigvec_psd and pnp_refine must have run): every seed
+    just before each seed and read after (the path's one scoring kernel,
+    score_pnp, 3 launches of 3 rows a round, and threefry, eigvec_psd and
+    pnp_refine must have run; no other scoring kernel): every seed
     at least 2 instances, the mean pose errors at or under
     TLESS_MEAN_GATES or the JAX package's on the same seeds
     (JAX_SAME_DRAW_TLESS_MEAN), whichever is larger. The first seed's
     wall time holds the card's first SVD and solve calls."""
     import progressivex_tpu_torch
+    from progressivex_tpu_torch.io import profiling
 
     (xy, xyz), poses, K = _new_scene("tless")
     kw = _new_path("P")[2]
-    per_seed, failures, launches = [], [], 0
+    per_seed, failures, launches, pnp_launches = [], [], 0, 0
     for seed in TLESS_SEEDS:
         _zero_launches()
         t0 = time.perf_counter()
-        models, labels, stats = progressivex_tpu_torch.find6DPoses(
-            xy, xyz, K, **kw, random_seed=seed, with_statistics=True)
+        with profiling.recording() as spans:
+            models, labels, stats = progressivex_tpu_torch.find6DPoses(
+                xy, xyz, K, **kw, random_seed=seed, with_statistics=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         _check_outputs("P", "tless", models, labels, len(xy))
@@ -1851,7 +1940,8 @@ def phase_tless(torch):
                "points": len(xy), "wall_s": wall, "n_models": models.shape[0] // 3,
                "pose_errors": errs, "restart": stats.restart,
                "restart_energies": stats.restart_energies,
-               "launches": _no_launches("tless"),
+               "launches": _no_launches("tless", "score_pnp"),
+               "score_pnp": _pnp_launches("tless", spans),
                "threefry_launches": _threefry_launches("tless"),
                "eigvec_launches": _eigvec_launches("tless"),
                "refine_launches": _refine_launches("tless")}
@@ -1860,6 +1950,7 @@ def phase_tless(torch):
             failures.append(f"tless seed {seed}: {res['n_models']} instances")
         per_seed.append(errs)
         launches += res["refine_launches"]
+        pnp_launches += res["score_pnp"]["launches"]
     mean = np.array(per_seed).mean(0)  # [pose, (rot, tr)]
     gates = [tuple(max(a, j) for a, j in zip(anchor, same))
              for anchor, same in zip(TLESS_MEAN_GATES, JAX_SAME_DRAW_TLESS_MEAN)]
@@ -1872,7 +1963,8 @@ def phase_tless(torch):
                             f"above {rg} deg, {tg} mm")
     if failures:
         raise AssertionError("; ".join(failures))
-    return {"mean": mean.tolist(), "refine_launches": launches}
+    return {"mean": mean.tolist(), "refine_launches": launches,
+            "score_pnp_launches": pnp_launches}
 
 
 def phase_card_vs_cpu_new(result, problem):
@@ -1920,8 +2012,8 @@ def _batched_new(problem, names, memo):
 
 def phase_batched_new(torch, problem, names):
     """The batched front end of `problem` on `names`, the launch counts
-    set to 0 just before the batch and read after (the path reaches no
-    kernel): each scene against its limit (lines and VPs: the JAX
+    set to 0 just before the batch and read after (lines and VPs reach no
+    scoring kernel, poses score_pnp alone): each scene against its limit (lines and VPs: the JAX
     package's CPU ME, for lines the larger of the worst of ten seeds and
     the ME on the same draw, + ME_SLACK; T-LESS: at least 2 instances within
     TLESS_BATCHED_GATES); then each scene alone against the same scene
@@ -1937,7 +2029,9 @@ def phase_batched_new(torch, problem, names):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     res = {"problem": problem, "entry": _new_path(problem)[1], "scenes": list(names),
-           "wall_s": wall, "launches": _no_launches(f"batched {problem}"), "per_scene": []}
+           "wall_s": wall, "per_scene": [],
+           "launches": _no_launches(f"batched {problem}",
+                                    "score_pnp" if problem == "P" else None)}
     failures = []
     for i, name in enumerate(names):
         inputs, truth, limit = _new_scene(name)
@@ -3220,7 +3314,8 @@ def main():
     if FAILURES:
         _fail("; ".join(FAILURES))
 
-    kernel_cases, row_cases, essential_cases, synth_cases, hyp_cases, captured = kernel_phase
+    (kernel_cases, row_cases, essential_cases, synth_cases, hyp_cases, captured,
+     pose_cases) = kernel_phase
     kernels = [
         _kernel_line("score_homography", *kernel_cases["score_homography"],
                      results["H"], [256, 2304],
@@ -3249,6 +3344,7 @@ def main():
                                                "V": {"vp-0": new["V"]}}))
     kernels.append(_eigvec_line(eigvec_phase, {**results, "V": {"vp-0": new["V"]}}))
     kernels.append(_refine_line(refine_phase, tless["refine_launches"]))
+    kernels.append(_pnp_line(pose_cases, captured["score_pnp"], tless["score_pnp_launches"]))
     for k in kernels:
         k["launches_compiled_fit"] = compiled["launches"][k["name"]]
     print("bench", json.dumps(bench), flush=True)

@@ -1,10 +1,15 @@
 // Fused compound-penalized scoring of hypotheses (sm_90a): the body that the
-// per-family sources (score_homography.cu, score_fundamental.cu) share.
+// per-family sources (score_homography.cu, score_fundamental.cu,
+// score_pnp.cu) share.
 //
 // Replaces the body of the Pallas TPU kernel
 // progressivex_tpu/ops/pallas_scoring.py:91-126 (`_score_kernel`, launched by
 // `fused_scores` at :155). Its two residual functions (`_homography_r2` and
-// `_sampson_r2`) become the functors passed as `Residual`. For every
+// `_sampson_r2`) become the functors passed as `Residual`; the pose family's
+// reprojection error, which the JAX package scores in XLA
+// (`compound_penalized_scores` over `residual_scorer`'s function), is a third.
+// A functor names its point type (`Point`: float4, or the pose family's five
+// floats) and its descriptor's length (`kDescWords`: 9, or 12). For every
 // (hypothesis b, point n) the kernel forms the squared residual r2,
 // x = r2 / tau_t^2, the hard-tau preference pref = max(0, 1 - x) and the
 // ranking preference (pref, or the MAGSAC ladder
@@ -27,8 +32,9 @@
 // time, not bytes, and the design aims at keeping every SM issuing.
 //
 // Rows. One launch scores R independent problems (the rows of the engine's
-// row axis: scenes, restarts): data [R, N, 4], compound and mask [R, N],
-// descriptors [R, B, 9], tau_t^2 and has_compound per row, outputs [R, B].
+// row axis: scenes, restarts): data [R, N, P] (P the point's floats),
+// compound and mask [R, N], descriptors [R, B, D], tau_t^2 and has_compound
+// per row, outputs [R, B].
 // This is what `fused_scores` computes under `jax.vmap`, where the
 // pallas_call gains a grid axis. A block belongs to one row, and a cluster
 // too: the grid is R x ceil(B / K) x S blocks, row-major. K may follow R B,
@@ -39,7 +45,7 @@
 //
 // Design.
 //  - A block owns a tile of K (1, 2 or 4) hypotheses; each thread keeps their K
-//    descriptors (9 K floats) and 5 K running sums in registers. The block's
+//    descriptors (D K floats) and 5 K running sums in registers. The block's
 //    threads split the block's point range, so every point read from shared
 //    memory is scored against K hypotheses: K independent dependency chains
 //    per thread. The wrapper (kernels/scoring._tiling) picks K, the cluster
@@ -51,13 +57,18 @@
 //    memory, in rank order.
 //  - Points reach shared memory by Hopper's bulk async copy
 //    (cp.async.bulk, completion on an mbarrier), through a two-stage ring
-//    of up to kMaxTile points a stage: a point is 21 bytes (float4 of
-//    coordinates, the compound value, the mask byte), so a stage is at most
-//    21 KB and the largest pad level does not depend on one allocation
-//    fitting. Thread 0 issues the copies; the tail of a tile that is not a
-//    multiple of 16 points (bulk copies move multiples of 16 bytes) is
-//    loaded by plain loads. Consecutive threads read consecutive points, so
-//    the shared-memory reads are free of bank conflicts.
+//    of up to max_tile<Point>() points a stage: a point is 21 bytes (float4
+//    of coordinates, the compound value, the mask byte; 25 with the pose
+//    family's five floats), so a stage is at most 21 KB (1024 points of 21
+//    bytes, 848 of 25) and the largest pad level does not depend on one
+//    allocation fitting. Thread 0 issues the copies; the tail of a tile
+//    that is not a multiple of 16 points (bulk copies move multiples of 16
+//    bytes) is loaded by plain loads, and so is a whole tile of a row whose
+//    arrays do not start on a 16-byte boundary. Float4 coordinates always
+//    come by bulk copy; five-float ones, like the compound and the mask,
+//    only for the 16-point part of an aligned row. Consecutive threads read
+//    consecutive points (a float4, or five words at a stride of five, which
+//    is odd), so the shared-memory reads are free of bank conflicts.
 //  - No branch on the mask: a masked point enters as x = 1 and compound 0,
 //    which makes each of its terms +0, so rows of any value under a false
 //    mask change nothing.
@@ -90,16 +101,29 @@ namespace progx {
 namespace cg = cooperative_groups;
 
 constexpr int kMaxThreads = 256;
-constexpr int kMaxTile = 1024;  // points per ring stage
+constexpr int kStageBytes = 21 * 1024;  // bytes of points a ring stage holds at most
 constexpr int kMaxCluster = 8;
-constexpr int kPointBytes = 21;       // float4 + compound + mask byte
 constexpr int kGenericLevels = -1;    // M of the instance for any other m
 
+// Bytes of a staged point: its coordinates, the compound value, the mask
+// byte (21 for a float4).
+template <class Point>
+__host__ __device__ constexpr int point_bytes() {
+  return static_cast<int>(sizeof(Point)) + 5;
+}
+
+// Points a ring stage holds: a multiple of 16 within kStageBytes (1024 for
+// a float4).
+template <class Point>
+__host__ __device__ constexpr int max_tile() {
+  return kStageBytes / point_bytes<Point>() & ~15;
+}
+
 struct ScoreArgs {
-  const float4* pts;       // [R, N]
+  const void* pts;         // [R, N] of the residual's Point
   const float* compound;   // [R, N]
   const uint8_t* mask;     // [R, N]
-  const float* descs;      // [R, B, 9]
+  const float* descs;      // [R, B, D]
   const float* trunc_sq;   // [R]
   const uint8_t* has_compound;  // [R]
   int n_hyp, n_pts;        // B and N of a row
@@ -115,17 +139,19 @@ struct ScoreArgs {
 };
 
 // One row's inputs, offset from the launch's.
+template <class Point>
 struct RowPtrs {
-  const float4* pts;
+  const Point* pts;
   const float* compound;
   const uint8_t* mask;
-  bool bulk;  // compound and mask start on a 16-byte boundary
+  bool bulk;  // compound and mask (and points other than float4) start on a 16-byte boundary
 };
 
 // Dynamic shared memory: the two ring stages, two mbarriers, the per-warp
 // partial sums and the block's partial sums (read by cluster rank 0).
+template <class Point>
 __host__ __device__ constexpr int smem_bytes(int tile, int k, int threads) {
-  return 2 * kPointBytes * tile + 16 + 5 * 4 * k * (threads / 32 + 1);
+  return 2 * point_bytes<Point>() * tile + 16 + 5 * 4 * k * (threads / 32 + 1);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -174,22 +200,33 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
 
 // Points of a stage whose compound and mask come by bulk copy: up to the
 // last multiple of 16, or none where the row is not 16-byte aligned.
-__device__ __forceinline__ int bulk_points(const RowPtrs& r, int c) {
+template <class Point>
+__device__ __forceinline__ int bulk_points(const RowPtrs<Point>& r, int c) {
   return r.bulk ? c & ~15 : 0;
 }
 
-// Thread 0: start the copy of points [start, start + c) into a ring stage.
-// Compound and mask go by bulk copy for the first bulk_points(c) points;
-// the consumer loads the rest.
-__device__ __forceinline__ void issue_tile(const ScoreArgs& a, const RowPtrs& r,
+// Thread 0: start the copy of points [start, start + c) into a ring stage
+// (coordinates, then compound at P tile bytes, then the mask). Float4
+// coordinates go by bulk copy for all c points; compound and mask, and
+// coordinates of any other size, for the first bulk_points(c) points; the
+// consumer loads the rest.
+template <class Point>
+__device__ __forceinline__ void issue_tile(const ScoreArgs& a, const RowPtrs<Point>& r,
                                            int start, int c, unsigned char* stage,
                                            uint64_t* bar) {
+  constexpr int kP = static_cast<int>(sizeof(Point));
+  constexpr uint32_t kPu = sizeof(Point);
   const int c16 = bulk_points(r, c);
-  mbar_arrive_expect_tx(bar, 16u * c + 5u * c16);
-  bulk_load(stage, r.pts + start, 16u * c, bar);
+  if constexpr (kP == 16) {
+    mbar_arrive_expect_tx(bar, 16u * c + 5u * c16);
+    bulk_load(stage, r.pts + start, 16u * c, bar);
+  } else {
+    mbar_arrive_expect_tx(bar, (kPu + 5u) * c16);
+  }
   if (c16 > 0) {
-    bulk_load(stage + 16 * a.tile, r.compound + start, 4u * c16, bar);
-    bulk_load(stage + 20 * a.tile, r.mask + start, c16, bar);
+    if constexpr (kP != 16) bulk_load(stage, r.pts + start, kPu * c16, bar);
+    bulk_load(stage + kP * a.tile, r.compound + start, 4u * c16, bar);
+    bulk_load(stage + (kP + 4) * a.tile, r.mask + start, c16, bar);
   }
 }
 
@@ -245,6 +282,9 @@ __device__ __forceinline__ int warp_reduce(float (&acc)[K][5], int lane) {
 // [r chunk, (r + 1) chunk).
 template <class Residual, int K, int M>
 __global__ void __launch_bounds__(kMaxThreads) score_kernel(const ScoreArgs a) {
+  using Point = typename Residual::Point;
+  constexpr int kP = static_cast<int>(sizeof(Point));
+  constexpr int kPointBytes = point_bytes<Point>();
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int n_ranks = static_cast<int>(cluster.num_blocks());
@@ -256,12 +296,14 @@ __global__ void __launch_bounds__(kMaxThreads) score_kernel(const ScoreArgs a) {
   const int b0 = static_cast<int>(blockIdx.x) % row_blocks / n_ranks * K;
   const size_t pt0 = static_cast<size_t>(row) * a.n_pts;
   const size_t hyp0 = static_cast<size_t>(row) * a.n_hyp;
-  RowPtrs r;
-  r.pts = a.pts + pt0;
+  RowPtrs<Point> r;
+  r.pts = static_cast<const Point*>(a.pts) + pt0;
   r.compound = a.compound + pt0;
   r.mask = a.mask + pt0;
-  r.bulk = ((reinterpret_cast<uintptr_t>(r.compound) |
-             reinterpret_cast<uintptr_t>(r.mask)) & 15) == 0;
+  uintptr_t at = reinterpret_cast<uintptr_t>(r.compound) |
+                 reinterpret_cast<uintptr_t>(r.mask);
+  if constexpr (kP != 16) at |= reinterpret_cast<uintptr_t>(r.pts);
+  r.bulk = (at & 15) == 0;
   const float trunc_sq = a.trunc_sq[row];
   const int tile = a.tile;
   const int p0 = min(a.n_pts, rank * a.chunk);
@@ -287,7 +329,7 @@ __global__ void __launch_bounds__(kMaxThreads) score_kernel(const ScoreArgs a) {
   float acc[K][5];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    res[k].load(a.descs + 9 * (hyp0 + min(b0 + k, a.n_hyp - 1)));
+    res[k].load(a.descs + Residual::kDescWords * (hyp0 + min(b0 + k, a.n_hyp - 1)));
 #pragma unroll
     for (int f = 0; f < 5; ++f) acc[k][f] = 0.f;
   }
@@ -296,12 +338,13 @@ __global__ void __launch_bounds__(kMaxThreads) score_kernel(const ScoreArgs a) {
 
   for (int t = 0; t < n_tiles; ++t) {
     unsigned char* stage = smem + (t & 1) * kPointBytes * tile;
-    const float4* s_pts = reinterpret_cast<const float4*>(stage);
-    float* s_comp = reinterpret_cast<float*>(stage + 16 * tile);
-    uint8_t* s_mask = stage + 20 * tile;
+    const Point* s_pts = reinterpret_cast<const Point*>(stage);
+    float* s_comp = reinterpret_cast<float*>(stage + kP * tile);
+    uint8_t* s_mask = stage + (kP + 4) * tile;
     const int start = p0 + t * tile;
     const int c = min(tile, p1 - start);
     for (int j = bulk_points(r, c) + tid; j < c; j += n_threads) {
+      if constexpr (kP != 16) reinterpret_cast<Point*>(stage)[j] = r.pts[start + j];
       s_comp[j] = r.compound[start + j];
       s_mask[j] = r.mask[start + j];
     }
@@ -309,7 +352,7 @@ __global__ void __launch_bounds__(kMaxThreads) score_kernel(const ScoreArgs a) {
     __syncthreads();  // the tail is in place
 
     for (int i = tid; i < c; i += n_threads) {
-      const float4 p = s_pts[i];
+      const Point p = s_pts[i];
       const bool v = s_mask[i] != 0;
       // A masked point enters as x = 1 and compound 0, so that each of
       // its terms is +0: no branch, and rows of any value change nothing.
@@ -398,7 +441,8 @@ cudaError_t launch_instance(ScoreArgs a, int n_rows, int cluster, int threads,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(blocks), 1, 1);
   cfg.blockDim = dim3(static_cast<unsigned>(threads), 1, 1);
-  cfg.dynamicSmemBytes = static_cast<size_t>(smem_bytes(a.tile, K, threads));
+  cfg.dynamicSmemBytes =
+      static_cast<size_t>(smem_bytes<typename Residual::Point>(a.tile, K, threads));
   cfg.stream = stream;
   // A cluster only where the points are split: the attribute costs launch
   // time even at one block a cluster, and a launch without it runs each
@@ -426,9 +470,10 @@ cudaError_t launch_levels(const ScoreArgs& a, int n_rows, int cluster, int threa
 // Launches score_kernel<Residual, k_tile, .> on `stream` over n_rows rows of
 // n_hyp hypotheses and n_pts points each, a cluster of `cluster` blocks per
 // hypothesis tile, `threads` threads a block; returns the launch's error or
-// else cudaGetLastError(). pts, compound and pmask (bool as bytes) must be
-// 16-byte aligned; trunc_sq (f32) and has_compound (bytes) hold one value a
-// row.
+// else cudaGetLastError(). pts ([R, N] of Residual::Point), compound and
+// pmask (bool as bytes) must be 16-byte aligned; descs holds
+// Residual::kDescWords floats a hypothesis; trunc_sq (f32) and has_compound
+// (bytes) hold one value a row.
 template <class Residual>
 int launch_scores(const void* pts, const void* compound, const void* pmask,
                   const void* descs, int n_rows, int n_hyp, int n_pts,
@@ -441,8 +486,9 @@ int launch_scores(const void* pts, const void* compound, const void* pmask,
     return static_cast<int>(cudaErrorInvalidValue);
   const int per_rank = (n_pts + cluster - 1) / cluster;
   const int chunk = per_rank < 16 ? 16 : (per_rank + 15) & ~15;
+  constexpr int kMaxTile = max_tile<typename Residual::Point>();
   const ScoreArgs a = {
-      static_cast<const float4*>(pts), static_cast<const float*>(compound),
+      pts, static_cast<const float*>(compound),
       static_cast<const uint8_t*>(pmask), static_cast<const float*>(descs),
       static_cast<const float*>(trunc_sq), static_cast<const uint8_t*>(has_compound),
       n_hyp, n_pts, 0, chunk, chunk < kMaxTile ? chunk : kMaxTile, exponent,

@@ -25,6 +25,8 @@
 namespace {
 
 struct SampsonR2 {
+  using Point = float4;
+  static constexpr int kDescWords = 9;
   float f[9];
 
   __device__ void load(const float* d) {

@@ -23,6 +23,8 @@
 namespace {
 
 struct HomographyR2 {
+  using Point = float4;
+  static constexpr int kDescWords = 9;
   float h[9];
 
   __device__ void load(const float* d) {

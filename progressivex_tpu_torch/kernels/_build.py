@@ -49,7 +49,8 @@ from progressivex_tpu_torch._device import device_guard
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
-SOURCES = ("score_homography", "score_fundamental", "threefry", "eigvec_psd", "pnp_refine")
+SOURCES = ("score_homography", "score_fundamental", "score_pnp", "threefry", "eigvec_psd",
+           "pnp_refine")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

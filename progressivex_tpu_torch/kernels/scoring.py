@@ -1,25 +1,29 @@
-"""Fused proposal scoring: the CUDA kernels of the homography and
-fundamental families and their plain torch versions.
+"""Fused proposal scoring: the CUDA kernels of the homography,
+fundamental and 6D-pose (PnP) families and their plain torch versions.
 
-The kernels (csrc/score_homography.cu, csrc/score_fundamental.cu, one body
-in csrc/score_common.cuh) replace the Pallas TPU kernel
-progressivex_tpu/ops/pallas_scoring.py:91-126 (`_score_kernel`, reached
-through `fused_scores`) with its two residual functions, `_homography_r2`
-and `_sampson_r2`. Each computes `ops/scoring.compound_penalized_scores`
+The kernels (csrc/score_homography.cu, csrc/score_fundamental.cu,
+csrc/score_pnp.cu, one body in csrc/score_common.cuh) replace the Pallas
+TPU kernel progressivex_tpu/ops/pallas_scoring.py:91-126 (`_score_kernel`,
+reached through `fused_scores`) with its two residual functions,
+`_homography_r2` and `_sampson_r2`, and, for poses, the XLA fusion of
+`compound_penalized_scores` over the family's residual that the JAX
+engine compiles. Each computes `ops/scoring.compound_penalized_scores`
 over its family's `_squared_residual` without materializing the [B, N]
 residual field. A block scores a tile of K hypotheses against its share of
 the points, staged in shared memory; at small B a thread block cluster of
 S blocks splits each tile's points. `_tiling` picks K, S and the block
 size from B and N so that the grid covers the card's SMs where B allows.
 On an H100 the pass is bound by latency and the launch more than by its
-operations (32 per (hypothesis, valid point) pair for H, 46 for F, 17 more
-with four MAGSAC levels): PERF.md has its times beside its bounds.
+operations (32 per (hypothesis, valid point) pair for H, 46 for F, 39 for
+PnP, 17 more with four MAGSAC levels): PERF.md has its times beside its
+bounds.
 
-Rows: every function takes a leading row axis, data [R, N, 4], descs
-[R, B, 9], compound_pref and point_mask [R, N], trunc_sq and has_compound
-[R], and returns [R, B] outputs; one launch scores all rows (the vmapped
-`fused_scores`). Called without the row axis (data [N, 4], descs [B, 9],
-scalars), they return [B] outputs, as one row.
+Rows: every function takes a leading row axis, data [R, N, P], descs
+[R, B, D] (P, D = 4, 9 for H and F, 5, 12 for PnP), compound_pref and
+point_mask [R, N], trunc_sq and has_compound [R], and returns [R, B]
+outputs; one launch scores all rows (the vmapped `fused_scores`). Called
+without the row axis (data [N, P], descs [B, D], scalars), they return
+[B] outputs, as one row.
 
 Dispatch and launch (kernels/_build.py): a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises. A launch goes to the
@@ -38,7 +42,9 @@ import torch
 from progressivex_tpu_torch.kernels import _build
 from progressivex_tpu_torch.kernels._build import LAUNCHES  # noqa: F401 (bench_port/harness.py reads it here)
 
-KERNELS = ("score_homography", "score_fundamental")
+# Each kernel's point and descriptor widths: data [R, N, P], descs [R, B, D].
+WIDTHS = {"score_homography": (4, 9), "score_fundamental": (4, 9), "score_pnp": (5, 12)}
+KERNELS = tuple(WIDTHS)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # pts, compound, mask, descs, R, B, N, trunc_sq, has_compound, exponent,
 # magsac levels, K, cluster, threads, scores, inliers, dots, norms
@@ -65,6 +71,20 @@ def score_fundamental_plain(data, descs, compound_pref, point_mask, trunc_sq,
     return compound_penalized_scores(
         _squared_residual(data, descs), compound_pref, point_mask, trunc_sq,
         exponent, has_compound, magsac_levels)
+
+
+def score_pnp_plain(data, descs, compound_pref, point_mask, trunc_sq,
+                    exponent, has_compound, magsac_levels=0):
+    """The function the PnP kernel computes, in plain torch: the pose
+    family's `residual_scorer`, its sums by `row_sum` (a row's scores the
+    same bits at any number of rows), as the family scored before the
+    kernel."""
+    from progressivex_tpu_torch.models.pnp import _squared_residual
+    from progressivex_tpu_torch.ops.scoring import residual_scorer
+
+    return residual_scorer(_squared_residual)(
+        data, descs, compound_pref, point_mask, trunc_sq, exponent, has_compound,
+        magsac_levels)
 
 
 def _tiling(b: int, n: int, n_sms: int, rows: int = 1):
@@ -104,10 +124,11 @@ def _aligned(t):
 
 def _launch(name, data, descs, compound_pref, point_mask, trunc_sq, exponent,
             has_compound, magsac_levels):
-    """Check the CUDA inputs, launch csrc/<name>.cu's kernel over all rows. data [R, N, 4] f32, descs [R, B, 9] f32, compound_pref [R, N]
-    f32, point_mask [R, N] bool, trunc_sq [R] f32 and has_compound [R]
-    bool. Returns (scores f32, inliers int32, dots f32, norms f32), each
-    [R, B]."""
+    """Check the CUDA inputs, launch csrc/<name>.cu's kernel over all
+    rows. data [R, N, P] f32, descs [R, B, D] f32 (P, D the kernel's
+    WIDTHS), compound_pref [R, N] f32, point_mask [R, N] bool, trunc_sq
+    [R] f32 and has_compound [R] bool. Returns (scores f32, inliers int32,
+    dots f32, norms f32), each [R, B]."""
     dev = data.device
     for arg, t in (("data", data), ("descs", descs),
                    ("compound_pref", compound_pref), ("point_mask", point_mask),
@@ -115,7 +136,8 @@ def _launch(name, data, descs, compound_pref, point_mask, trunc_sq, exponent,
         if t.device != dev:
             raise ValueError(f"{arg} is on {t.device}, data on {dev}")
     r, n, b = data.shape[0], data.shape[1], descs.shape[1]
-    if data.shape != (r, n, 4) or descs.shape != (r, b, 9) or \
+    p, d = WIDTHS[name]
+    if data.shape != (r, n, p) or descs.shape != (r, b, d) or \
             compound_pref.shape != (r, n) or point_mask.shape != (r, n) or \
             trunc_sq.shape != (r,) or has_compound.shape != (r,):
         raise ValueError(f"shapes data {tuple(data.shape)}, descs "
@@ -178,6 +200,13 @@ def score_fundamental_cuda(data, descs, compound_pref, point_mask, trunc_sq,
                         point_mask, trunc_sq, exponent, has_compound, magsac_levels)
 
 
+def score_pnp_cuda(data, descs, compound_pref, point_mask, trunc_sq,
+                   exponent, has_compound, magsac_levels=0):
+    """Launch the PnP kernel on CUDA tensors (see `_rows_launch`)."""
+    return _rows_launch("score_pnp", data, descs, compound_pref,
+                        point_mask, trunc_sq, exponent, has_compound, magsac_levels)
+
+
 def score_homography(data, descs, compound_pref, point_mask, trunc_sq,
                      exponent, has_compound, magsac_levels=0):
     """(scores, inliers, dots, norms) [R, B] (or [B] without the row axis)
@@ -196,5 +225,15 @@ def score_fundamental(data, descs, compound_pref, point_mask, trunc_sq,
     the CUDA kernel for CUDA tensors."""
     return _build.dispatch("scoring", data.device, score_fundamental_plain,
                            score_fundamental_cuda)(
+        data, descs, compound_pref, point_mask, trunc_sq, exponent, has_compound,
+        magsac_levels)
+
+
+def score_pnp(data, descs, compound_pref, point_mask, trunc_sq, exponent,
+              has_compound, magsac_levels=0):
+    """(scores, inliers, dots, norms) [R, B] (or [B] without the row axis)
+    of 6D poses [R | t] on rows (x, y, X, Y, Z): the plain version for CPU
+    tensors, the CUDA kernel for CUDA tensors."""
+    return _build.dispatch("scoring", data.device, score_pnp_plain, score_pnp_cuda)(
         data, descs, compound_pref, point_mask, trunc_sq, exponent, has_compound,
         magsac_levels)

@@ -11,8 +11,10 @@ squared reprojection error in normalized coordinates, 1e18 behind the
 camera. The reasons behind each choice (the depth sign instead of det R,
 Gauss-Newton instead of the algebraic refit on small-field-angle scenes)
 are in the JAX module and hold here unchanged. The JAX package reaches no
-kernel for this family; its proposal scorer is the plain
-`ops/scoring.residual_scorer` on the card and the CPU alike.
+kernel for this family; XLA fuses its proposal scorer. Here the scorer is
+kernels/scoring.score_pnp: on the CPU its plain version, which is
+`ops/scoring.residual_scorer` over `_squared_residual`; on the card one
+launch of csrc/score_pnp.cu, which writes no [B, N] field.
 
 The SVDs (Kabsch and the SO(3) projection) are `ops/linalg.svd3` on a
 matrix made finite first (`torch.linalg.svd` on the CPU, a Jacobi SVD
@@ -32,12 +34,12 @@ from __future__ import annotations
 import torch
 
 from progressivex_tpu_torch.kernels import pnp as kpnp
+from progressivex_tpu_torch.kernels.scoring import score_pnp
 from progressivex_tpu_torch.models.base import (ModelFamily, point_columns,
                                                 register_family, row_view)
 from progressivex_tpu_torch.ops.linalg import (det3, gram, kabsch, matmul_small,
                                                quartic_roots_real, row_sum,
                                                smallest_eigvec_psd, svd3)
-from progressivex_tpu_torch.ops.scoring import residual_scorer
 
 _EPS = 1e-12
 
@@ -198,7 +200,7 @@ PNP = register_family(
         minimal_solver_batched=_minimal_batched,
         nonminimal_solver=_nonminimal,
         squared_residual=_squared_residual,
-        scorer=residual_scorer(_squared_residual),
+        scorer=score_pnp,
         refine_solver=_refine,
     )
 )

@@ -4,10 +4,10 @@
   model score          = sum(preference) - (sum min(pref, compound_pref))^e
 
 (reference `scoring_function_with_compound_model.h:61-125`). This is the
-plain torch form; on the card the homography and fundamental families
-score through the fused kernels of kernels/scoring.py, which compute the
-same function, and the families that reach no kernel in the JAX package
-(lines, vanishing points, PnP) through `residual_scorer`.
+plain torch form; on the card the homography, fundamental and PnP
+families score through the fused kernels of kernels/scoring.py, which
+compute the same function (PnP's plain version is `residual_scorer`), and
+lines and vanishing points through `residual_scorer`.
 
 Every function takes an optional leading row axis: sq_residuals [R, B, N]
 with compound_pref and point_mask [R, N], and `truncated_sq_threshold`

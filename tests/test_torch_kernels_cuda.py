@@ -1,6 +1,7 @@
-"""The port's CUDA scoring kernels on the card (homography and
-fundamental, the latter also at the essential path's shapes), against
-their plain torch versions on the same CUDA tensors.
+"""The port's CUDA scoring kernels on the card (homography, fundamental,
+the latter also at the essential path's shapes, and PnP, also at the pose
+path's shapes), against their plain torch versions on the same CUDA
+tensors.
 
 These tests need a CUDA device and nvcc. They import neither JAX nor the
 JAX package, so that they also run where JAX is not installed:
@@ -24,7 +25,7 @@ import torch
 
 from progressivex_tpu_torch.kernels import _build
 from progressivex_tpu_torch.kernels import scoring as kscoring
-from progressivex_tpu_torch.models import essential, fundamental, homography
+from progressivex_tpu_torch.models import essential, fundamental, homography, pnp
 
 TRUNC_SQ, EXPONENT = 25.0, 2.0
 
@@ -122,19 +123,41 @@ def test_fundamental_kernel_padding_independence(cuda):
         np.testing.assert_allclose(g.cpu().numpy(), b.cpu().numpy(), rtol=1e-5)
 
 
-FAMILIES = {"homography": (homography, 4), "fundamental": (fundamental, 7)}
+FAMILIES = {"homography": (homography, 4), "fundamental": (fundamental, 7),
+            "pnp": (pnp, 3)}
+
+
+def _pose_rows(r, n):
+    """n rows (x, y, X, Y, Z) of one pose on a scale where TRUNC_SQ
+    separates inliers: object points spread wide across the view (x, y
+    up to about 100), 60% of them projected with noise of 2, 30% at
+    random, 10% behind the camera."""
+    ang = r.uniform(0, 2 * np.pi)
+    c, s = np.cos(ang), np.sin(ang)
+    rot = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+    obj = np.c_[r.uniform(-60, 60, (n, 2)), r.uniform(-2.5, 0.5, n)]
+    kind = r.uniform(size=n)
+    behind = kind > 0.9
+    obj[behind, 2] = r.uniform(-5, -3.6, behind.sum())
+    q = obj @ rot.T + np.array([0.0, 0.0, 3.0])
+    xy = q[:, :2] / q[:, 2:] + r.normal(0, 2, (n, 2))
+    out = kind < 0.3
+    xy[out] = r.uniform(-50, 50, (out.sum(), 2))
+    return np.c_[xy, obj]
 
 
 def _shape_case(dev, family, b, n, seed=0):
-    """b finite minimal-solve descriptors of `family` on n random points;
-    the last 13 points and about 15% of the rest are masked, so the valid
-    count is a multiple of no tile size."""
+    """b finite minimal-solve descriptors of `family` on n random points
+    (a pose scene of `_pose_rows` for PnP); the last 13 points and about
+    15% of the rest are masked, so the valid count is a multiple of no
+    tile size."""
     fam, m = FAMILIES[family]
     r = np.random.default_rng(seed)
-    data = torch.as_tensor(r.uniform(-50, 50, (n, 4)), dtype=torch.float32)
+    data = torch.as_tensor(_pose_rows(r, n) if family == "pnp" else
+                           r.uniform(-50, 50, (n, 4)), dtype=torch.float32)
     idx = torch.as_tensor(r.integers(0, n, (2 * b, m)))
     descs, _ = fam._minimal_batched(data[idx])
-    descs = descs.reshape(-1, 9)
+    descs = descs.reshape(-1, descs.shape[-1])
     descs = descs[torch.isfinite(descs).all(1)][:b]
     assert descs.shape[0] == b
     compound = torch.as_tensor(r.uniform(0, 1, n), dtype=torch.float32)
@@ -233,7 +256,7 @@ def test_every_tiling_matches_plain(cuda, family, b, n):
 
 def _c_launch(kernel, data, descs, compound, pmask, trunc_sq, has, m, tiling,
               exponent=EXPONENT):
-    """The C entry point over rows: data [R, N, 4], descs [R, B, 9],
+    """The C entry point over rows: data [R, N, P], descs [R, B, D],
     compound and pmask [R, N], trunc_sq and has [R], at `tiling`. Returns
     the four [R, B] outputs, NaN (or -1) where the kernel wrote nothing."""
     r, n = data.shape[:2]
@@ -441,8 +464,9 @@ def test_launch_from_a_fresh_thread(cuda, family):
 
     name = f"score_{family}"
     for dev in [torch.device("cuda", i) for i in range(torch.cuda.device_count())]:
-        args = [t.to(dev) for t in _case(cuda, family=FAMILIES[family][0],
-                                         m=FAMILIES[family][1])]
+        case = (_shape_case(cuda, family, 96, 300) if family == "pnp" else
+                _case(cuda, family=FAMILIES[family][0], m=FAMILIES[family][1]))
+        args = [t.to(dev) for t in case]
         out, errors = [], []
 
         def launch():
@@ -463,3 +487,108 @@ def test_launch_from_a_fresh_thread(cuda, family):
         assert all(o.device == dev for o in out[0])
         _check(out[0], getattr(kscoring, f"{name}_plain")(*args, TRUNC_SQ, EXPONENT,
                                                           True, 4))
+
+
+def _tless_rows(dev, rows, b, seed=0):
+    """The pose path's shapes: `rows` restarts of the bundled T-LESS scene
+    (1,886 rows normalized by K^-1, padded to 2,304) scoring the P3P poses
+    of 400 random three-point samples a row (every root, valid or not, as
+    the engine scores them) or, at B = 4, the four of them with the most
+    inliers (as the LO refits them), at the front end's 4 px threshold,
+    with a compound preference of its own a row and the penalty on in rows
+    0 and 2. Returns ((data, descs, compound, pmask), trunc_sq, has)."""
+    from progressivex_tpu_torch.api import pose_inputs
+    from progressivex_tpu_torch.core.config import truncated_sq_threshold
+    from progressivex_tpu_torch.io.data import load_tless_scene
+
+    r = np.random.default_rng(seed)
+    xy, xyz, K, _ = load_tless_scene()
+    rows_np, _, _, thr = pose_inputs(xy, xyz, K, 4.0)
+    n_valid, n = len(rows_np), 2304
+    data = torch.zeros(n, 5)
+    data[:n_valid] = torch.as_tensor(rows_np, dtype=torch.float32)
+    pmask = torch.arange(n) < n_valid
+    idx = torch.as_tensor(r.integers(0, n_valid, (rows, 400, 3)))
+    descs, _ = pnp._minimal_batched(data[idx].reshape(-1, 3, 5))
+    descs = descs.reshape(rows, 1600, 12)
+    tau = truncated_sq_threshold(thr)
+    if b < 1600:
+        r2 = pnp._squared_residual(data[None].repeat(rows, 1, 1), descs)
+        inliers = ((r2 < tau / 2.25) & pmask).sum(-1)
+        descs = torch.stack([d[i] for d, i in zip(descs, inliers.topk(b, -1).indices)])
+    compound = torch.as_tensor(r.uniform(0, 1, (rows, n)), dtype=torch.float32) * pmask
+    stacked = [t.to(dev).contiguous() for t in (
+        data[None].repeat(rows, 1, 1), descs, compound, pmask[None].repeat(rows, 1))]
+    trunc_sq = torch.full((rows,), float(tau), device=dev)
+    has = torch.arange(rows, device=dev) % 2 == 0
+    return stacked, trunc_sq, has
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1600, 4])
+@pytest.mark.parametrize("magsac_levels", [0, 4])
+def test_pnp_kernel_at_pose_shapes(cuda, b, magsac_levels):
+    """score_pnp at the pose fit's launches, [3 x 1,600, 2,304] (the
+    proposal's field: 400 samples x 4 P3P roots a restart) and
+    [3 x 4, 2,304] (the LO's candidates), on T-LESS: one launch, inliers
+    bit for bit the plain version's (the kernel writes r2 in its operation
+    order), the rest within the stated tolerance; a finite descriptor's
+    score is finite in both."""
+    (data, descs, compound, pmask), trunc_sq, has = _tless_rows(cuda, 3, b)
+    before = _build.LAUNCHES["score_pnp"], _build.UNITS["score_pnp"]
+    got = kscoring.score_pnp(data, descs, compound, pmask, trunc_sq, 2.0, has,
+                             magsac_levels)
+    torch.cuda.synchronize()
+    assert (_build.LAUNCHES["score_pnp"], _build.UNITS["score_pnp"]) == (
+        before[0] + 1, before[1] + 3)
+    want = kscoring.score_pnp_plain(data, descs, compound, pmask, trunc_sq, 2.0, has,
+                                    magsac_levels)
+    assert int(got[1].max()) > 50  # the scale holds inliers
+    _check(got, want)
+    finite = torch.isfinite(descs).all(-1)
+    assert torch.equal(finite & torch.isfinite(got[0]), finite & torch.isfinite(want[0]))
+
+
+@pytest.mark.cuda
+def test_pnp_points_behind_and_at_the_depth_floor(cuda):
+    """Points behind the camera (r2 = 1e18), at depths on both sides of
+    the 1e-9 floor (|q_z| <= 1e-9 divides by 1e-9; q_z <= 1e-9 is behind)
+    and with a projection that overflows to inf: under [I | 0] the depth
+    q_z is the point's Z exactly, so each branch is hit. The kernel's
+    inlier counts equal the plain version's, its other outputs lie within
+    the tolerance, in every row of the batch."""
+    depths = torch.tensor([-1.0, -1e-9, -1e-10, 0.0, 1e-10, 5e-10, 1e-9,
+                           float(np.nextafter(np.float32(1e-9), np.float32(1))),
+                           2e-9, 1e-8, 1e-3, 0.5, 1.0, 2.0], dtype=torch.float32)
+    r = np.random.default_rng(3)
+    n = 300
+    z = depths[torch.as_tensor(r.integers(0, len(depths), n))]
+    xy_obj = torch.as_tensor(r.uniform(-1e-8, 1e-8, (n, 2)), dtype=torch.float32)
+    xy = torch.as_tensor(r.uniform(-2, 2, (n, 2)), dtype=torch.float32)
+    xy[::3] = xy_obj[::3] / torch.clamp(z[::3, None].abs(), min=1e-9)
+    xy_obj[::37] = 1e30  # q_x / z overflows; the image point stays finite
+    data = torch.cat([xy, xy_obj, z[:, None]], 1)
+    eye = torch.tensor([1.0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, 0])
+    descs = eye.repeat(6, 1)
+    descs[1, 11] = 1e-9  # t_z shifts every depth by the floor
+    descs[2, 11] = -1e-9
+    descs[3, 3] = 1.0  # t_x
+    descs[4, 10] = -1.0  # the depth axis reversed: in front becomes behind
+    descs[5, [0, 5]] = 2.0
+    compound = torch.as_tensor(r.uniform(0, 1, n), dtype=torch.float32)
+    pmask = torch.as_tensor(r.uniform(size=n) > 0.1)
+    rows = 3
+    args = [t[None].repeat(rows, *([1] * t.ndim)).to(cuda).contiguous()
+            for t in (data, descs, compound, pmask)]
+    trunc_sq = torch.tensor([TRUNC_SQ, 1.0, 0.01], device=cuda)
+    has = torch.tensor([True, False, True], device=cuda)
+    r2 = pnp._squared_residual(args[0], args[1])
+    assert bool((r2 == 1e18).any()) and bool(torch.isinf(r2).any())
+    qz_floor = (z > 1e-9) & (z < 2e-9)
+    assert bool(qz_floor.any()) and bool(((z > 0) & (z <= 1e-9)).any())
+    for m in (0, 4):
+        got = kscoring.score_pnp_cuda(*args, trunc_sq, EXPONENT, has, m)
+        want = kscoring.score_pnp_plain(*args, trunc_sq, EXPONENT, has, m)
+        torch.cuda.synchronize()
+        assert int(got[1].max()) > 0
+        _check(got, want)

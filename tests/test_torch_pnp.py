@@ -16,6 +16,7 @@ pair free, so the rotation is what is held.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from progressivex_tpu import api as japi
@@ -256,3 +257,67 @@ def test_load_tless_scene_and_pose_errors():
     errs = pose_errors([gt[1], gt[0]], gt)
     np.testing.assert_allclose(errs, [(0.0, 0.0), (0.0, 0.0)], atol=1e-4)
     assert pose_errors([], gt) == [(np.inf, np.inf)] * 2
+
+
+def _scorer_case(rows=2, n=300, b=48, seed=5):
+    """`rows` noisy pose scenes of `_pnp_scene` (padded rows masked out)
+    and b P3P poses of random three-point samples a row, with a compound
+    preference and the compound penalty on in row 0 only; residuals of the
+    good poses straddle the threshold (noise 0.01, tau_t^2 4e-4)."""
+    r = np.random.default_rng(seed)
+    data = np.stack([_pnp_scene(n, seed=seed + i, noise=0.01)[0] for i in range(rows)])
+    idx = r.integers(0, n, (rows, b // 4, 3))
+    descs = np.stack([np.asarray(tpnp._minimal_batched(_t(d[i]))[0]).reshape(-1, 12)
+                      for d, i in zip(data, idx)])
+    compound = r.uniform(0, 1, (rows, n)).astype(np.float32)
+    pmask = r.uniform(size=(rows, n)) > 0.1
+    trunc_sq = np.full(rows, 4e-4, np.float32)
+    has = np.arange(rows) == 0
+    return data, descs, compound, pmask, trunc_sq, has
+
+
+@pytest.mark.parametrize("magsac_levels", [0, 4])
+@pytest.mark.parametrize("row_axis", [True, False])
+def test_scorer_on_cpu_is_the_residual_scorer(magsac_levels, row_axis):
+    """The family's scorer (kernels/scoring.score_pnp) on CPU tensors is
+    the plain `residual_scorer` over `_squared_residual` that scored poses
+    before the kernel, bit for bit, with and without the row axis: the
+    parity tests of the pose fit hold the same code as before."""
+    from progressivex_tpu_torch.ops.scoring import residual_scorer
+
+    case = _scorer_case()
+    if not row_axis:
+        case = [c[0] for c in case]
+    data, descs, compound, pmask, trunc_sq, has = (_t(c) for c in case)
+    got = get_family("pnp").scorer(data, descs, compound, pmask, trunc_sq, 2.0, has,
+                                   magsac_levels)
+    want = residual_scorer(tpnp._squared_residual)(data, descs, compound, pmask,
+                                                   trunc_sq, 2.0, has, magsac_levels)
+    assert int(want[1].max()) > 10 and int(want[1].min()) < int(want[1].max())
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("magsac_levels", [0, 4])
+def test_scores_match_jax(magsac_levels):
+    """The pose scorer against the JAX engine's: `compound_penalized_scores`
+    over the vmapped JAX residual, row by row. Inlier counts exact; scores,
+    dots and norms rtol 1e-3, atol 1e-2 (tests/test_torch_scoring.py's
+    tolerance, for float32 sums taken in another order)."""
+    from progressivex_tpu.ops import scoring as jscoring
+
+    data, descs, compound, pmask, trunc_sq, has = _scorer_case()
+    got = get_family("pnp").scorer(_t(data), _t(descs), _t(compound), _t(pmask),
+                                   _t(trunc_sq), 2.0, _t(has), magsac_levels)
+    for r in range(data.shape[0]):
+        r2 = jax.vmap(jfamily("pnp").squared_residual, in_axes=(None, 0))(
+            jnp.array(data[r]), jnp.array(descs[r]))
+        want = jscoring.compound_penalized_scores(
+            r2, jnp.array(compound[r]), jnp.array(pmask[r]), float(trunc_sq[r]), 2.0,
+            bool(has[r]), magsac_levels=magsac_levels)
+        for g, w, name in zip(got, want, ("scores", "inliers", "dots", "norms")):
+            g, w = g[r].numpy(), np.asarray(w)
+            if name == "inliers":
+                np.testing.assert_array_equal(g, w, err_msg=name)
+            else:
+                np.testing.assert_allclose(g, w, rtol=1e-3, atol=1e-2, err_msg=name)

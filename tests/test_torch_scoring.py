@@ -110,8 +110,8 @@ def test_tanimoto_matches_jax():
 
 
 def test_cpu_tensor_never_needs_the_compiler(monkeypatch):
-    """On CPU tensors the wrapper takes the plain version and launches
-    nothing."""
+    """On CPU tensors the wrappers (homography, and PnP over rows) take
+    the plain version and launch nothing."""
     from progressivex_tpu_torch.kernels import _build
 
     def no_build(name):
@@ -122,6 +122,13 @@ def test_cpu_tensor_never_needs_the_compiler(monkeypatch):
     data, descs, compound, pmask = _case(b=8, n=64)
     kscoring.score_homography(*_torch_inputs(data, descs, compound, pmask),
                               TRUNC_SQ, EXPONENT, True, 4)
+    r = np.random.default_rng(1)
+    rows = torch.as_tensor(r.uniform(-1, 1, (3, 64, 5)), dtype=torch.float32)
+    rows[..., 4] += 4.0
+    poses = torch.as_tensor(r.normal(size=(3, 8, 12)), dtype=torch.float32)
+    got = kscoring.score_pnp(rows, poses, torch.rand(3, 64), torch.ones(3, 64, dtype=torch.bool),
+                             torch.full((3,), 0.01), EXPONENT, torch.ones(3, dtype=torch.bool))
+    assert got[0].shape == (3, 8)
     assert _build.LAUNCHES == before
 
 
@@ -147,9 +154,21 @@ def test_tiling_fills_the_card(b, n):
 @pytest.mark.parametrize("b, n, want", [
     (256, 2304, (1, 1, 256)), (4, 2304, (1, 8, 128)), (256, 384, (1, 1, 128)),
     (4, 384, (1, 1, 128)), (1536, 256, (4, 1, 128)), (4, 256, (1, 1, 128)),
-    (256, 7680, (1, 1, 256)), (4, 7680, (1, 8, 256))])
+    (256, 7680, (1, 1, 256)), (4, 7680, (1, 8, 256)), (1600, 2304, (4, 1, 256))])
 def test_tiling_at_the_path_shapes(b, n, want):
     """The tilings the sweep on an H100 (tools/sweep_score_tiling.py) found
     fastest or within a few percent of it, at the shapes the H and F paths
     launch."""
     assert kscoring._tiling(b, n, 132) == want
+
+
+@pytest.mark.parametrize("rows, b, n, want", [
+    (3, 1600, 2304, (4, 1, 256)), (3, 4, 2304, (1, 8, 128)),
+    (6, 1600, 2304, (4, 1, 256)), (6, 4, 2304, (1, 8, 128))])
+def test_tiling_at_the_pose_shapes(rows, b, n, want):
+    """The tilings of score_pnp's launches in a pose fit: the proposal's
+    field, 3 restarts x 1,600 P3P poses on 2,304 points, and the LO's 3 x 4
+    candidates (6 rows: find6DPosesBatched on two scenes). At B = 1,600
+    one row already fills the card at K = 4; the LO's four poses split
+    each one's points over a cluster of 8."""
+    assert kscoring._tiling(b, n, 132, rows) == want

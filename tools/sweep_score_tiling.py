@@ -23,12 +23,13 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402  (the kernel-case helpers)
 
-# (kernel, scene, B values, tau_t^2, exponent)
+# (kernel, scene, B values, tau_t^2 (None: the path's own), exponent)
 SHAPES = (
     ("score_homography", "oldclassicswing", (256, 4), 36.0, 2.0),
     ("score_homography", "unihouse", (256, 4), 36.0, 2.0),
     ("score_homography", chip_smoke.SYNTHETIC, (256, 4), 36.0, 2.0),
     ("score_fundamental", "cubetoy", (1536, 4), None, 1.0),
+    ("score_pnp", "tless", (1600, 4), None, 2.0),
 )
 TILINGS = [(k, s, t) for k in (1, 2, 4) for s in (1, 2, 4, 8) for t in (128, 256)]
 
@@ -59,8 +60,9 @@ def main():
     rng = np.random.default_rng(0)
     rows = []
     for name, scene, sizes, trunc_sq, exponent in SHAPES:
-        if trunc_sq is None:
-            trunc_sq = float(truncated_sq_threshold(0.75))
+        if trunc_sq is None:  # F's 0.75 px; the pose fit's 4 px over the focal length
+            trunc_sq = float(truncated_sq_threshold(
+                chip_smoke._tless_threshold() if name == "score_pnp" else 0.75))
         family = get_family(name.removeprefix("score_"))
         kernel = _build.entry_point(name, ks._ARGS)
         data, pmask, compound, n = chip_smoke._scene_tensors(torch, dev, scene, rng)
